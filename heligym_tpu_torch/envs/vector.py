@@ -1,0 +1,75 @@
+"""Vectorized env: lockstep batched stepping with on-device auto-reset.
+
+The state's fields carry a leading batch axis; the env's step functions are
+elementwise over it, so the batched eager step is the single-env step on
+(B,) tensors. This eager step is the port's own reference for the fused CUDA
+step (`ops/cuda/fused_step.py`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from .env import EnvState, HeliEnv, StepOutput, map_tensors
+from .trim import TrimResult
+
+
+def broadcast_state(es: EnvState, n: int) -> EnvState:
+    """Tile a single-env EnvState across a leading batch axis (a copy, so the
+    envs' tensors never alias)."""
+    return map_tensors(lambda x: x.expand((n,) + x.shape).clone(), es)
+
+
+def auto_reset(new_es: EnvState, out: StepOutput) -> Tuple[EnvState, StepOutput]:
+    """Where an episode ended, replace the sim state with its ResetSnapshot
+    (gymnasium autoreset convention: the returned obs is the fresh episode's
+    first obs; reward/flags describe the terminating step)."""
+    ended = out.done | out.truncated
+
+    def pick(init_leaf, new_leaf):
+        mask = ended.reshape(ended.shape + (1,) * (new_leaf.dim() - ended.dim()))
+        return torch.where(mask, init_leaf, new_leaf)
+
+    snap = new_es.init
+    pick_state = lambda a, b: type(a)(**{f: pick(getattr(a, f), getattr(b, f))
+                                         for f in a.FIELDS})
+    zeros_i = torch.zeros_like(new_es.steps)
+    es = new_es.replace(
+        heli=pick_state(snap.heli, new_es.heli),
+        wind=pick_state(snap.wind, new_es.wind),
+        dots=pick_state(snap.dots, new_es.dots),
+        obs=pick(snap.obs, new_es.obs),
+        wind_ned=pick(snap.wind_ned, new_es.wind_ned),
+        steps=torch.where(ended, zeros_i, new_es.steps),
+        successed_steps=torch.where(ended, zeros_i, new_es.successed_steps),
+    )
+    return es, out.replace(obs=pick(snap.obs, out.obs))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class VectorHeliEnv:
+    """Batch of envs stepping in lockstep on the env's device."""
+    env: HeliEnv
+    num_envs: int
+    auto_reset: bool = True
+
+    def reset_from_trim(self, tr: TrimResult) -> Tuple[EnvState, torch.Tensor]:
+        es_single, _ = self.env.reset_from_trim(tr)
+        es = broadcast_state(es_single, self.num_envs)
+        return es, es.obs
+
+    def step_with_eta(self, es: EnvState, actions, eta) -> Tuple[EnvState, StepOutput]:
+        """Lockstep transition with injected noise `eta` (num_envs, 3)."""
+        new_es, out = self.env.step_with_eta(es, actions, eta)
+        if self.auto_reset:
+            new_es, out = auto_reset(new_es, out)
+        return new_es, out
+
+    def step(self, es: EnvState, actions,
+             generator: Optional[torch.Generator] = None) -> Tuple[EnvState, StepOutput]:
+        """Lockstep batched transition; `actions` is (num_envs, 4)."""
+        eta = torch.randn((self.num_envs, 3), generator=generator,
+                          device=es.obs.device) * (1.0 / self.env.dt) ** 0.5
+        return self.step_with_eta(es, actions, eta)

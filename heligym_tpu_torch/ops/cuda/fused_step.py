@@ -1,0 +1,399 @@
+"""The fused env step: one hand-written CUDA kernel per env transition.
+
+Counterpart of the JAX package's `ops/pallas/fused_step.py`. The kernel
+(`csrc/fused_step.cu`) runs one env per thread: Dryden wind RK4, helicopter
+RK4, the hover reward, counters, termination at the post-step terrain height
+(gathered in the kernel from the packed texel table), the collect row and
+the auto-reset select. Each launch finishes its own transition, so the JAX
+path's one-step-late flag pipelining and its XLA epilogue are gone, and its
+outputs equal `HeliEnv.step_with_eta` followed by `auto_reset`.
+
+`fused_step` is the wrapper: CUDA tensors launch the kernel (or raise); CPU
+tensors run `fused_step_plain`, the same function written with the port's
+torch modules. Nothing falls back from one to the other.
+
+Row maps (envs contiguous within a row):
+  carry (63, B): 0-17 heli (HELI_STATE_FIELDS order) | 18-22 wind |
+    23-39 obs | 40-57 dots | 58-60 wind_ned | 61 steps | 62 successed_steps
+  init (61, B): rows 0-60 of a fresh episode's carry (the ResetSnapshot)
+  collect (22, B): 0 reward | 1 done | 2 truncated | 3 failed |
+    4-20 obs after auto-reset | 21 succ_step (in-tolerance flag)
+  act (B, 4); eta (3, B) already scaled by 1/sqrt(dt).
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ...envs.env import EnvState, HeliEnv, _non_finite
+from ...envs.tasks import HoverTask
+from ...ops import dryden, terrain as terrain_ops
+from ...ops.state import HeliState, WindState
+from ...utils.constants import D2R, EPS, RK4_SIXTH, SQRT_3, TWO_D_PI
+from ...utils.math import recip32
+
+KERNEL = "fused_step"
+REPLACES = "heligym_tpu/ops/pallas/fused_step.py:201"
+
+# carry-block row offsets
+H0, W0, O0, D0, N0 = 0, 18, 23, 40, 58
+SROWS = 61                      # state rows (also the init block's rows)
+STEPS, SUCC = 61, 62
+CROWS = 63
+# collect-block rows
+CREW, CDONE, CTRUNC, CFAIL, COBS0, CSUCC, XROWS = 0, 1, 2, 3, 4, 21, 22
+
+# Bytes one env-step must move: the carry in and out, the action, the noise,
+# two texel rows; the collect block when collected; the init block only in
+# lanes whose episode ended.
+BYTES_PER_ENV_STEP = 4 * (2 * CROWS + 4 + 3 + 2 * 3)
+BYTES_COLLECT = 4 * XROWS
+BYTES_RESET = 4 * SROWS
+
+# Launches of the kernel (not of the plain version) since import.
+launches = 0
+
+# The kernel's constant table, one f32 each, in the order of `enum Const` in
+# csrc/fused_step.cu.
+_IDX3 = [f"{i}{j}" for i in range(3) for j in range(3)]
+CONST_NAMES = (
+    "D2R",
+    "COL_OS", "COL_SPAN", "COL_MID", "LON_SPAN", "LON_MID", "LAT_SPAN", "LAT_MID",
+    "PED_OS", "PED_SPAN", "PED_MID",
+    "WT", "T0", "LAPSE", "INV_T0", "RHO_EXP", "RO_SEA",
+    "PI", "TWO_PI", "EPS", "P3", "BIG",
+    "MR_GAM_OM16_DRO", "MR_KC_NUM", "MR_K1", "MR_OMEGA", "MR_DL_DA1_DRO",
+    "MR_DL_DB1", "MR_IS", "MR_WB_C1", "MR_TW075", "MR_INV_VTIP", "MR_TW05",
+    "MR_COEF_TH", "MR_VIDOT_C", "MR_R", "MR_FR4", "MR_VTIP", "MR_VTIP2",
+    "MR_INV_OMEGA", "MR_INV_ASIGMA", "MR_2_VTIP", "VTRANS", "MR_H", "MR_D",
+    "MR_INV_R",
+    "TR_D", "TR_H", "TR_WB_C1", "TR_TW075", "TR_INV_VTIP", "TR_TW05",
+    "TR_COEF_TH", "TR_VIDOT_C", "TR_R2", "TR_OMEGA",
+    "FUS_HARM", "FUS_DARM", "FUS_COR", "FUS_XUU", "FUS_YVV", "FUS_ZWW", "FUS_H",
+    "HT_HARM", "HT_DARM", "HT_D", "HT_ZMAX", "HT_ZUU", "HT_ZUW",
+    "VT_D", "VT_H", "VT_YMAX", "VT_YUU", "VT_YUV",
+    "WL_CG12", "LG_C", "LG_K",
+    *[f"LG_LOC_{ij}" for ij in _IDX3],
+    "HP_LOSS_FT", "INV_M",
+    *[f"I_{ij}" for ij in _IDX3],
+    *[f"IINV_{ij}" for ij in _IDX3],
+    "INV_550",
+    "HALF_DT", "DT", "RK4_C",
+    "WM0", "WM1", "WM2",
+    "TEP_RF",
+    *[f"TEP_KEY_{k}" for k in range(12)],
+    *[f"TEP_A_{k}" for k in range(12)],
+    *[f"TEP_B_{k}" for k in range(12)],
+    "TB_A", "TB_B", "P12", "P04", "SW_LO", "AZC_LO", "AZS_LO", "INV_1000",
+    "TWO_D_PI", "TWO_SQRT3",
+    "NORM_T", "NORM_T2", "INV_NORM_X", "INV_NORM_V", "HOVER_TN", "HOVER_TE",
+    "HOVER_TD",
+    "TIME_UP_STEPS", "SUCC_REQ", "VTIP005", "ANG60", "NS_HALF", "EW_HALF",
+    "INV_XSCALE", "INV_YSCALE", "HALF_H", "HALF_W", "HM1",
+)
+
+
+def const_values(env: HeliEnv) -> dict:
+    """Every constant the kernel reads, folded on the host in float64 with
+    the grouping of the JAX expressions it stands for (each is rounded to
+    float32 once, where it meets a tensor). `recip32` marks a division by a
+    constant, which XLA and PyTorch's CUDA kernels turn into a multiply by
+    the float32 reciprocal."""
+    p, norm, task = env.params, env.normalizers, env.task
+    H, E, MR, TR = p.HELI, p.ENV, p.MR, p.TR
+    FUS, HT, VT, LG = p.FUS, p.HT, p.VT, p.LG
+    wp = env.wind_params
+    r_factor, col_keys, row_a, row_b = dryden.tep_static_row(wp.turbulence_level)
+    w20 = wp.turbulence_level / 7.0 * 88.61
+    tn, te, td = task.targets_normalized(norm)
+    h, w = env.terrain.hmap.shape
+    v = {
+        "D2R": D2R,
+        "COL_OS": H.COL_OS, "COL_SPAN": H.COL_H - H.COL_L,
+        "COL_MID": 0.5 * (H.COL_H + H.COL_L),
+        "LON_SPAN": H.LON_H - H.LON_L, "LON_MID": 0.5 * (H.LON_H + H.LON_L),
+        "LAT_SPAN": H.LAT_H - H.LAT_L, "LAT_MID": 0.5 * (H.LAT_H + H.LAT_L),
+        "PED_OS": H.PED_OS, "PED_SPAN": H.PED_H - H.PED_L,
+        "PED_MID": 0.5 * (H.PED_H + H.PED_L),
+        "WT": H.WT, "T0": E.T0, "LAPSE": E.LAPSE, "INV_T0": recip32(E.T0),
+        "RHO_EXP": (E.GRAV / (E.LAPSE * E.R)) - 1.0, "RO_SEA": E.RO_SEA,
+        "PI": math.pi, "TWO_PI": 2.0 * math.pi, "EPS": EPS, "P3": 0.3, "BIG": 1e30,
+        "MR_GAM_OM16_DRO": MR.GAM_OM16_DRO,
+        "MR_KC_NUM": 0.75 * MR.OMEGA * MR.E / MR.R, "MR_K1": MR.K1,
+        "MR_OMEGA": MR.OMEGA, "MR_DL_DA1_DRO": MR.DL_DA1_DRO,
+        "MR_DL_DB1": MR.DL_DB1, "MR_IS": MR.IS,
+        "MR_WB_C1": 0.66667 * MR.V_TIP, "MR_TW075": 0.75 * MR.TWST,
+        "MR_INV_VTIP": recip32(MR.V_TIP), "MR_TW05": 0.5 * MR.TWST,
+        "MR_COEF_TH": MR.COEF_TH, "MR_VIDOT_C": 0.75 * math.pi / MR.R,
+        "MR_R": MR.R, "MR_FR4": MR.FR / 4.0, "MR_VTIP": MR.V_TIP,
+        "MR_VTIP2": MR.V_TIP * MR.V_TIP, "MR_INV_OMEGA": recip32(MR.OMEGA),
+        "MR_INV_ASIGMA": recip32(MR.A_SIGMA), "MR_2_VTIP": 2.0 / MR.V_TIP,
+        "VTRANS": H.VTRANS, "MR_H": MR.H, "MR_D": MR.D,
+        "MR_INV_R": recip32(MR.R),
+        "TR_D": TR.D, "TR_H": TR.H, "TR_WB_C1": 0.66667 * TR.V_TIP,
+        "TR_TW075": 0.75 * TR.TWST, "TR_INV_VTIP": recip32(TR.V_TIP),
+        "TR_TW05": 0.5 * TR.TWST, "TR_COEF_TH": TR.COEF_TH,
+        "TR_VIDOT_C": 0.75 * math.pi / TR.R, "TR_R2": TR.R ** 2,
+        "TR_OMEGA": TR.OMEGA,
+        "FUS_HARM": MR.H - FUS.H, "FUS_DARM": FUS.D - MR.D, "FUS_COR": FUS.COR,
+        "FUS_XUU": FUS.XUU, "FUS_YVV": FUS.YVV, "FUS_ZWW": FUS.ZWW,
+        "FUS_H": FUS.H,
+        "HT_HARM": MR.H - HT.H, "HT_DARM": HT.D - MR.D - MR.R, "HT_D": HT.D,
+        "HT_ZMAX": HT.ZMAX, "HT_ZUU": HT.ZUU, "HT_ZUW": HT.ZUW,
+        "VT_D": VT.D, "VT_H": VT.H, "VT_YMAX": VT.YMAX, "VT_YUU": VT.YUU,
+        "VT_YUV": VT.YUV,
+        "WL_CG12": H.WL_CG / 12.0, "LG_C": LG.C, "LG_K": LG.K,
+        **{f"LG_LOC_{i}{j}": LG.LOC[i][j] for i in range(3) for j in range(3)},
+        "HP_LOSS_FT": 550.0 * H.HP_LOSS, "INV_M": recip32(H.M),
+        **{f"I_{i}{j}": H.I[i][j] for i in range(3) for j in range(3)},
+        **{f"IINV_{i}{j}": H.IINV[i][j] for i in range(3) for j in range(3)},
+        "INV_550": recip32(550.0),
+        "HALF_DT": 0.5 * env.dt, "DT": env.dt, "RK4_C": RK4_SIXTH * env.dt,
+        "WM0": wp.mean_ned[0], "WM1": wp.mean_ned[1], "WM2": wp.mean_ned[2],
+        "TEP_RF": r_factor,
+        **{f"TEP_KEY_{k}": col_keys[k] for k in range(12)},
+        **{f"TEP_A_{k}": row_a[k] for k in range(12)},
+        **{f"TEP_B_{k}": row_b[k] for k in range(12)},
+        "TB_A": 0.177, "TB_B": 0.000823, "P12": 1.2, "P04": 0.4,
+        "SW_LO": 0.1 * w20,
+        "AZC_LO": float(np.cos(np.float32(wp.wind_dir_rad))),
+        "AZS_LO": float(np.sin(np.float32(wp.wind_dir_rad))),
+        "INV_1000": recip32(1000.0), "TWO_D_PI": TWO_D_PI,
+        "TWO_SQRT3": 2.0 * SQRT_3,
+        "NORM_T": norm.t, "NORM_T2": norm.t ** 2,
+        "INV_NORM_X": recip32(norm.x), "INV_NORM_V": recip32(norm.v),
+        "HOVER_TN": tn, "HOVER_TE": te, "HOVER_TD": td,
+        "TIME_UP_STEPS": float(env.time_up_steps),
+        "SUCC_REQ": float(env.success_steps_required),
+        "VTIP005": MR.V_TIP * 0.05, "ANG60": 60.0 * D2R,
+        "NS_HALF": E.NS_MAX / 2.0, "EW_HALF": E.EW_MAX / 2.0,
+        "INV_XSCALE": recip32(env.terrain.ns_max / h),
+        "INV_YSCALE": recip32(env.terrain.ew_max / w),
+        "HALF_H": float(h // 2), "HALF_W": float(w // 2), "HM1": float(h - 1),
+    }
+    return v
+
+
+@functools.lru_cache(maxsize=8)
+def _const_table(env: HeliEnv) -> torch.Tensor:
+    vals = const_values(env)
+    table = np.array([vals[n] for n in CONST_NAMES], dtype=np.float32)
+    return torch.from_numpy(table).to(env.device)
+
+
+def _check_supported(env: HeliEnv) -> None:
+    if type(env.task) is not HoverTask:
+        raise NotImplementedError(
+            f"the fused CUDA step implements HoverTask only, not "
+            f"{type(env.task).__name__}")
+    if env.params.WN.ZUW != 0.0:
+        raise NotImplementedError("the fused CUDA step has no wing term")
+
+
+# -- packing ---------------------------------------------------------------
+
+def pack(es: EnvState) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(carry (63, B), init (61, B)) from a batched EnvState."""
+    carry = torch.cat([
+        es.heli.rows(), es.wind.rows(), es.obs.T, es.dots.rows(), es.wind_ned.T,
+        es.steps.to(torch.float32)[None],
+        es.successed_steps.to(torch.float32)[None]], dim=0).contiguous()
+    s = es.init
+    init = torch.cat([s.heli.rows(), s.wind.rows(), s.obs.T, s.dots.rows(),
+                      s.wind_ned.T], dim=0).contiguous()
+    return carry, init
+
+
+def unpack(es: EnvState, carry: torch.Tensor) -> EnvState:
+    """EnvState from a carry block (views of it); `es` supplies init."""
+    return es.replace(
+        heli=HeliState.from_rows(carry[H0:W0]),
+        wind=WindState.from_rows(carry[W0:O0]),
+        obs=carry[O0:D0].T, dots=HeliState.from_rows(carry[D0:N0]),
+        wind_ned=carry[N0:SROWS].T,
+        steps=carry[STEPS].to(torch.int32),
+        successed_steps=carry[SUCC].to(torch.int32))
+
+
+# -- the plain version -----------------------------------------------------
+
+def fused_step_plain(env: HeliEnv, carry, init, act, eta, auto_reset: bool = True):
+    """The kernel's function in the port's torch modules:
+    (carry, init, act, eta) -> (carry', collect)."""
+    heli = HeliState.from_rows(carry[H0:W0])
+    wind = WindState.from_rows(carry[W0:O0])
+    obs = carry[O0:D0]
+    h_ground = terrain_ops.ground_height(env.terrain, heli.x, heli.y)
+    wind_new, wnd, heli_new, dots, obs_t, reward, succ_step = env.step_physics(
+        heli, wind, (obs[4], obs[5], obs[6], obs[16]),
+        (eta[0], eta[1], eta[2]), tuple(act[:, i] for i in range(4)), h_ground)
+
+    # counters: success counted before this step's flag is added
+    steps1 = carry[STEPS] + 1.0
+    succ0 = carry[SUCC]
+    f_succ = succ0 >= float(env.success_steps_required)
+    time_up = steps1 >= float(env.time_up_steps)
+    succ1 = succ0 + succ_step.to(torch.float32)
+
+    h_post = terrain_ops.ground_height(env.terrain, heli_new.x, heli_new.y)
+    bad = _non_finite(reward) | _non_finite(heli_new.z) | _non_finite(heli_new.u)
+    failed = env._is_failed(heli_new, dots, h_post) | bad
+    done = failed | f_succ
+
+    state = torch.cat([heli_new.rows(), wind_new.rows(), torch.stack(obs_t),
+                       dots.rows(), torch.stack(wnd)], dim=0)
+    if auto_reset:
+        ended = done | time_up
+        state = torch.where(ended, init, state)
+        steps1 = torch.where(ended, 0.0, steps1)
+        succ1 = torch.where(ended, 0.0, succ1)
+    carry_new = torch.cat([state, steps1[None], succ1[None]], dim=0)
+    f = lambda b: b.to(torch.float32)[None]
+    collect = torch.cat([reward[None], f(done), f(time_up), f(failed),
+                         state[O0:D0], f(succ_step)], dim=0)
+    return carry_new, collect
+
+
+# -- the wrapper -----------------------------------------------------------
+
+def fused_step(env: HeliEnv, carry, init, act, eta, auto_reset: bool = True,
+               carry_out: Optional[torch.Tensor] = None,
+               collect_out: Optional[torch.Tensor] = None,
+               collect: bool = True):
+    """One env transition for every env: (carry, init, act, eta) ->
+    (carry', collect). On CUDA tensors it launches the kernel; on CPU
+    tensors it runs `fused_step_plain`.
+
+    `carry_out` may be `carry` itself (updated in place). With
+    `collect=False` the collect block is not written and None is returned
+    in its place."""
+    global launches
+    if carry.device.type == "cpu":
+        new, x = fused_step_plain(env, carry, init, act, eta, auto_reset)
+        if carry_out is not None:
+            carry_out.copy_(new)
+            new = carry_out
+        if collect_out is not None:
+            collect_out.copy_(x)
+            x = collect_out
+        return new, (x if collect else None)
+    if carry.device.type != "cuda":
+        raise ValueError(f"fused_step runs on CUDA or CPU tensors, not {carry.device}")
+    n, dev = carry.shape[1], carry.device
+    carry_out = torch.empty_like(carry) if carry_out is None else carry_out
+    if not collect:
+        collect_out = None
+    elif collect_out is None:
+        collect_out = torch.empty((XROWS, n), dtype=torch.float32, device=dev)
+    args = launch_args(env, carry, init, act, eta, auto_reset, carry_out,
+                       collect_out)
+    with torch.cuda.device(dev):
+        err = kernel_fn()(*args)
+    if err != 0:
+        raise RuntimeError(f"fused_step kernel launch failed: cudaError {err}")
+    launches += 1
+    return carry_out, collect_out
+
+
+def launch_args(env: HeliEnv, carry, init, act, eta, auto_reset, carry_out,
+                collect_out) -> tuple:
+    """The checked arguments of one kernel launch, in the order of the C
+    entry point `heligym_fused_step`."""
+    _check_supported(env)
+    n, dev = carry.shape[1], carry.device
+    texels = env.terrain.packed
+    for name, t, shape in (("carry", carry, (CROWS, n)), ("init", init, (SROWS, n)),
+                           ("act", act, (n, 4)), ("eta", eta, (3, n)),
+                           ("terrain.packed", texels, (texels.shape[0], 3)),
+                           ("carry_out", carry_out, (CROWS, n)),
+                           ("collect_out", collect_out, (XROWS, n))):
+        if t is None:            # collect_out, when nothing is collected
+            continue
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() \
+                or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: expected a contiguous float32 {shape} tensor on {dev}, "
+                f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    map_h, map_w = env.terrain.hmap.shape
+    return (carry.data_ptr(), carry_out.data_ptr(), init.data_ptr(),
+            act.data_ptr(), eta.data_ptr(), texels.data_ptr(),
+            _const_table(env).data_ptr(),
+            None if collect_out is None else collect_out.data_ptr(),
+            n, int(auto_reset), map_h, map_w,
+            torch.cuda.current_stream(dev).cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_fn(flags: Optional[Tuple[str, ...]] = None):
+    """The kernel's C entry point, built from csrc/ at first use (with
+    `flags`, by default the port's nvcc flags)."""
+    import ctypes
+
+    from . import build
+    lib = build.load(KERNEL, flags or build.NVCC_FLAGS)
+    if lib.heligym_fused_step_const_count() != len(CONST_NAMES):
+        raise RuntimeError("csrc/fused_step.cu's constant layout differs from "
+                           "CONST_NAMES")
+    fn = lib.heligym_fused_step
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    fn.restype = ci
+    return fn
+
+
+# -- the rollout -----------------------------------------------------------
+
+def build_fused_rollout(env: HeliEnv, num_envs: int, steps: int,
+                        collect: Tuple[str, ...] = ("reward", "done"),
+                        auto_reset: bool = True, eta_mode: str = "batch"):
+    """Fused rollout: `rollout(es, actions, eta_seq=None, generator=None) ->
+    (es', outs)`, one `fused_step` per step.
+
+    `actions`: (steps, num_envs, 4), or (num_envs, 4) held constant.
+    `eta_mode`: "batch" draws the whole rollout's Dryden noise (steps, 3, B)
+    at once with `torch.randn(generator=...)` on the state's device;
+    "inject" takes an explicit `eta_seq` (steps, 3, num_envs) already
+    scaled by 1/sqrt(dt) — the parity-test seam.
+    `outs` holds per transition, after auto-reset: "reward" (T, B);
+    "done" and "truncated" (T, B) bool; "failed" (T, B) bool; "obs"
+    (T, B, 17), each when named in `collect`.
+    """
+    if eta_mode not in ("batch", "inject"):
+        raise ValueError(f"eta_mode must be 'batch' or 'inject', not {eta_mode!r}")
+
+    def rollout(es: EnvState, actions, eta_seq=None,
+                generator: Optional[torch.Generator] = None):
+        dev = es.obs.device
+        if eta_mode == "inject":
+            if eta_seq is None:
+                raise ValueError("eta_mode='inject' needs an eta_seq")
+        else:
+            eta_seq = torch.randn((steps, 3, num_envs), generator=generator,
+                                  device=dev) * (1.0 / env.dt) ** 0.5
+        actions, eta_seq = actions.contiguous(), eta_seq.contiguous()
+        carry, init = pack(es)
+        xbuf = (torch.empty((steps, XROWS, num_envs), dtype=torch.float32,
+                            device=dev) if collect else None)
+        for t in range(steps):
+            act = actions[t] if actions.dim() == 3 else actions
+            fused_step(env, carry, init, act, eta_seq[t], auto_reset=auto_reset,
+                       carry_out=carry,
+                       collect_out=xbuf[t] if collect else None,
+                       collect=bool(collect))
+        outs = {}
+        if "reward" in collect:
+            outs["reward"] = xbuf[:, CREW]
+        if "done" in collect:
+            outs["done"] = xbuf[:, CDONE] != 0
+            outs["truncated"] = xbuf[:, CTRUNC] != 0
+        if "failed" in collect:
+            outs["failed"] = xbuf[:, CFAIL] != 0
+        if "obs" in collect:
+            outs["obs"] = xbuf[:, COBS0:CSUCC].permute(0, 2, 1)
+        return unpack(es, carry), outs
+
+    return rollout

@@ -1,0 +1,163 @@
+"""The port's fused hover rollout (heligym_tpu_torch.ops.cuda.fused_step)
+against the JAX package's eager batched step.
+
+On the CPU the rollout runs the kernel's plain version. The reference is
+JAX's vmapped `step_with_eta` + `auto_reset` from the same state and the same
+injected noise (the JAX fused rollout in interpret mode costs minutes on the
+CPU; JAX's own test_fused.py holds it equal to this eager path). Tolerances:
+those of the JAX package's test_fused.py. The kernel itself is held against
+the plain version on the card by test_torch_cuda.py and chip_smoke.py."""
+import os
+import re
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from heligym_tpu.envs import VectorHeliEnv as JVectorHeliEnv
+from heligym_tpu.envs.vector import auto_reset as jauto_reset
+from heligym_tpu.ops.state import WIND_STATE_FIELDS
+
+from heligym_tpu_torch.convert import env_state_from_numpy
+from heligym_tpu_torch.envs import HeliEnv, HoverTask, Task, VectorHeliEnv
+from heligym_tpu_torch.ops.cuda import fused_step as fs
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+B = 128
+
+
+@pytest.fixture(scope="module")
+def env():
+    return HeliEnv.build("aw109", task=HoverTask(), device="cpu")
+
+
+def jax_state_to_numpy(es):
+    """A batched JAX EnvState flattened as `convert.STATE_KEYS`."""
+    wind = lambda w: np.stack([np.asarray(getattr(w, f)) for f in WIND_STATE_FIELDS], -1)
+    return {"heli": np.asarray(es.heli.flatten()), "wind": wind(es.wind),
+            "dots": np.asarray(es.dots.flatten()), "obs": np.asarray(es.obs),
+            "wind_ned": np.asarray(es.wind_ned), "steps": np.asarray(es.steps),
+            "successed_steps": np.asarray(es.successed_steps),
+            "init.heli": np.asarray(es.init.heli.flatten()),
+            "init.wind": wind(es.init.wind),
+            "init.dots": np.asarray(es.init.dots.flatten()),
+            "init.obs": np.asarray(es.init.obs),
+            "init.wind_ned": np.asarray(es.init.wind_ned)}
+
+
+@pytest.fixture(scope="module")
+def jstep(hover_env):
+    """JAX's batched step + auto_reset, compiled once for the module (the
+    compile costs ~25 s on the CPU)."""
+    return jax.jit(lambda es, a, e: jauto_reset(
+        *jax.vmap(hover_env.step_with_eta)(es, a, e.T)))
+
+
+def _run_both(env, hover_env, hover_trim, jstep, steps, dive, seed):
+    """The JAX eager batched step and the port's fused rollout from one JAX
+    reset state, with the same numpy actions and noise."""
+    es_j, _ = JVectorHeliEnv(hover_env, B).reset_from_trim(
+        hover_trim, jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed)
+    act = np.tile(np.asarray(hover_trim.action, np.float32), (steps, B, 1))
+    act += (0.02 * rng.standard_normal(act.shape)).astype(np.float32)
+    if dive:
+        act[..., 0] = -1.0
+    eta = (rng.standard_normal((steps, 3, B)) * (1.0 / hover_env.dt) ** 0.5
+           ).astype(np.float32)
+
+    es_t = env_state_from_numpy(jax_state_to_numpy(es_j), "cpu")
+    ref = {"reward": [], "done": [], "truncated": [], "failed": [], "obs": []}
+    e = es_j
+    for t in range(steps):
+        e, out = jstep(e, act[t], eta[t])
+        for k in ref:
+            ref[k].append(np.asarray(getattr(out, k)))
+    ref = {k: np.stack(v) for k, v in ref.items()}
+
+    roll = fs.build_fused_rollout(env, B, steps,
+                                  collect=("reward", "done", "failed", "obs"),
+                                  eta_mode="inject")
+    with torch.no_grad():
+        es_f, outs = roll(es_t, torch.from_numpy(act), torch.from_numpy(eta))
+    return e, ref, es_f, outs
+
+
+def test_fused_matches_jax_30_steps(env, hover_env, hover_trim, jstep):
+    e, ref, es_f, outs = _run_both(env, hover_env, hover_trim, jstep, 30, False, 0)
+    np.testing.assert_allclose(outs["reward"].numpy(), ref["reward"], atol=2e-5)
+    np.testing.assert_allclose(es_f.heli.flatten().numpy(),
+                               np.asarray(e.heli.flatten()), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(es_f.obs.numpy(), np.asarray(e.obs),
+                               rtol=1e-4, atol=2e-3)
+    np.testing.assert_allclose(outs["obs"].numpy(), ref["obs"], rtol=1e-4, atol=2e-3)
+    for k in ("done", "truncated", "failed"):
+        np.testing.assert_array_equal(outs[k].numpy(), ref[k], err_msg=k)
+    np.testing.assert_array_equal(es_f.steps.numpy(), np.asarray(e.steps))
+
+
+def test_fused_dive_autoreset_matches_jax_300_steps(env, hover_env, hover_trim, jstep):
+    """Collective full down: every env crashes and restarts inside the
+    rollout; the done streams and the step counters equal JAX's."""
+    e, ref, es_f, outs = _run_both(env, hover_env, hover_trim, jstep, 300, True, 1)
+    done = outs["done"].numpy()
+    assert done.any(), "dive never terminated inside the fused rollout"
+    np.testing.assert_array_equal(done, ref["done"])
+    np.testing.assert_array_equal(outs["truncated"].numpy(), ref["truncated"])
+    np.testing.assert_array_equal(es_f.steps.numpy(), np.asarray(e.steps))
+    np.testing.assert_array_equal(es_f.successed_steps.numpy(),
+                                  np.asarray(e.successed_steps))
+    assert (es_f.steps.numpy() < 300).all()
+
+
+def test_fused_plain_equals_port_eager_step(env):
+    """The plain version is the port's eager batched step + auto_reset."""
+    tr = env.trim_result()
+    venv = VectorHeliEnv(env, 16)
+    es, _ = venv.reset_from_trim(tr)
+    rng = np.random.default_rng(4)
+    act = torch.from_numpy((tr.action.numpy() + 0.05 * rng.standard_normal((20, 16, 4))
+                            ).astype(np.float32))
+    eta = torch.from_numpy((rng.standard_normal((20, 3, 16)) * 50 ** 0.5).astype(np.float32))
+    roll = fs.build_fused_rollout(env, 16, 20, collect=("reward", "done", "obs"),
+                                  eta_mode="inject")
+    with torch.no_grad():
+        es_f, outs = roll(es, act, eta)
+        for t in range(20):
+            es, out = venv.step_with_eta(es, act[t], eta[t].T)
+    assert torch.equal(outs["reward"][-1], out.reward)
+    assert torch.equal(outs["obs"][-1], out.obs)
+    assert torch.equal(es_f.heli.flatten(), es.heli.flatten())
+    assert torch.equal(es_f.steps, es.steps)
+
+
+def test_batch_mode_noise_from_generator(env):
+    tr = env.trim_result()
+    es, _ = VectorHeliEnv(env, 8).reset_from_trim(tr)
+    roll = fs.build_fused_rollout(env, 8, 5)
+    a = tr.action.expand(8, 4).contiguous()
+    r1 = roll(es, a, generator=torch.Generator().manual_seed(3))[1]["reward"]
+    r2 = roll(es, a, generator=torch.Generator().manual_seed(3))[1]["reward"]
+    r3 = roll(es, a, generator=torch.Generator().manual_seed(4))[1]["reward"]
+    assert r1.shape == (5, 8) and torch.equal(r1, r2) and not torch.equal(r1, r3)
+    with pytest.raises(ValueError):
+        fs.build_fused_rollout(env, 8, 5, eta_mode="inject")(es, a)
+
+
+def test_const_names_match_cuda_enum(env):
+    """The constant table's layout, defined by CONST_NAMES, equals the
+    `enum Const` of the CUDA source; every name has a value."""
+    with open(os.path.join(REPO, "heligym_tpu_torch", "csrc", "fused_step.cu")) as f:
+        src = f.read()
+    body = re.search(r"enum Const \{(.*?)\};", src, re.S).group(1)
+    enum = [n.strip() for n in re.sub(r"//[^\n]*", "", body).split(",") if n.strip()]
+    assert enum[-1] == "K_COUNT"
+    assert enum[:-1] == ["K_" + n for n in fs.CONST_NAMES]
+    assert set(fs.const_values(env)) == set(fs.CONST_NAMES)
+
+
+def test_kernel_covers_hover_only(env):
+    fs._check_supported(env)
+    with pytest.raises(NotImplementedError):
+        fs._check_supported(env.replace(task=Task()))
