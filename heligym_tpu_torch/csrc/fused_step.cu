@@ -1,4 +1,4 @@
-// fused_step.cu — one whole hover-env transition per thread, for Hopper (sm_90a).
+// fused_step.cu — one whole env transition per thread, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel heligym_tpu/ops/pallas/fused_step.py::_kernel
 // (launched by build_fused_core, pl.pallas_call at :201).
@@ -6,7 +6,9 @@
 // What it computes, per env (one thread): Dryden wind RK4 with the
 // reference's aliased k4, helicopter RK4 (4x heli_dynamics: rotor, tail rotor,
 // fuselage, empennage, gear, atmosphere, kinematics), pi_bound on 7 angles,
-// the hover reward, the step/success counters, done/truncated/failed at the
+// the task reward and in-tolerance flag (hover, forward, turning, slalom,
+// landing, oblique; for a MixedTask each thread evaluates the one sub-task its
+// task id names), the step/success counters, done/truncated/failed at the
 // post-step terrain height, the collect row, and the auto-reset select. The
 // terrain gather (committed position for the physics, post-step position for
 // the crash test) happens here, from the packed (H*W, 3) texel table; the TPU
@@ -14,9 +16,10 @@
 //
 // What bounds it on the H100: bytes. One env-step reads the 63-row carry,
 // 4 actions, 3 noise values and two 12-byte texel rows, writes the carry and
-// the 22-row collect block, and reads the 61-row init block only in lanes
-// whose episode ended: about 650 bytes against some 4k float operations, far
-// below the card's ~20 flop/byte balance. At 4096 envs that is ~2.7 MB, under
+// the 39-row collect block, and reads the 61 state rows of the init block only
+// in lanes whose episode ended (and its task-id row only for a MixedTask):
+// about 700 bytes against some 4k float operations, far below the card's
+// ~20 flop/byte balance. At 4096 envs that is ~2.9 MB, under
 // a microsecond at 3.35 TB/s — but 4096 threads fill less than one warp per
 // SM, so in practice one launch is latency-bound on the serial dependency
 // chain of the RK4 stages.
@@ -37,10 +40,14 @@
 // Row maps (envs contiguous within a row):
 //   carry (63, B): 0-17 heli (HELI_STATE_FIELDS) | 18-22 wind | 23-39 obs |
 //                  40-57 dots | 58-60 wind_ned | 61 steps | 62 successed_steps
-//   init  (61, B): rows 0-60 of the carry of a fresh episode
-//   collect (22, B): 0 reward | 1 done | 2 truncated | 3 failed |
-//                  4-20 obs after auto-reset | 21 in-tolerance flag
+//   init  (62, B): rows 0-60 of the carry of a fresh episode | 61 task id
+//                  (a small integer, exact in f32)
+//   collect (39, B): 0 reward | 1 done | 2 truncated | 3 failed |
+//                  4-20 obs after auto-reset | 21 in-tolerance flag |
+//                  22-38 obs before auto-reset (the value bootstrap's input)
 //   act (B, 4) row-major; eta (3, B) already scaled by 1/sqrt(dt).
+//   tasks (n_tasks, 8): kind | 5 targets folded on the host (see task_reward) |
+//                  2 pad, so that a row is two aligned 16-byte loads.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -81,15 +88,24 @@ enum Const {
   K_TEP_B_6, K_TEP_B_7, K_TEP_B_8, K_TEP_B_9, K_TEP_B_10, K_TEP_B_11,
   K_TB_A, K_TB_B, K_P12, K_P04, K_SW_LO, K_AZC_LO, K_AZS_LO, K_INV_1000,
   K_TWO_D_PI, K_TWO_SQRT3,
-  K_NORM_T, K_NORM_T2, K_INV_NORM_X, K_INV_NORM_V, K_HOVER_TN, K_HOVER_TE,
-  K_HOVER_TD,
+  K_NORM_T, K_NORM_T2, K_INV_NORM_X, K_INV_NORM_V, K_INV_NORM_A, K_THIRD,
   K_TIME_UP_STEPS, K_SUCC_REQ, K_VTIP005, K_ANG60, K_NS_HALF, K_EW_HALF,
   K_INV_XSCALE, K_INV_YSCALE, K_HALF_H, K_HALF_W, K_HM1,
   K_COUNT
 };
 
+// Task kinds, the first column of the task table;
+// heligym_tpu_torch/ops/cuda/fused_step.py TASK_KINDS lists the same names in
+// the same order.
+enum TaskKind {
+  T_NONE, T_HOVER, T_FORWARD, T_TURNING, T_SLALOM, T_LANDING, T_OBLIQUE,
+  T_KIND_COUNT
+};
+
 namespace {
 
+constexpr int kTaskStride = 8;
+constexpr int kTaskIdRow = 61;
 constexpr int kStateRows = 61;
 constexpr int kSteps = 61;
 constexpr int kSucc = 62;
@@ -454,18 +470,154 @@ __device__ __forceinline__ float k4only(float s, float d, float c) {
   return s + (((d + d * 2.0f) + d * 2.0f) + d) * c;
 }
 
+// One tracked quantity of a task reward: quadratic final term, derivative-
+// based terminal term, max-combined (envs/tasks.py _tracked).
+__device__ __forceinline__ float tracked(float err, float rate, float& fin) {
+  fin = -(err * err);
+  return max_nan(fin, -(sgn(err) * rate));
+}
+
+// envs/tasks.py: the reward and in-tolerance flag of one task from the
+// post-step state `s` and the k4 derivatives `d`. `P` is the task's row of
+// the task table: kind, then its targets as Task.folded() gives them
+//   hover:   north, east, down position over norm.x
+//   forward: speed over norm.v, down position over norm.x
+//   turning: yaw rate, speed over norm.v, down position over norm.x
+//   slalom:  amplitude, 2 pi / wavelength, their f32 product, speed over
+//            norm.v, down position over norm.x
+//   landing: pad north, pad east, desired sink over norm.v, touch_alt + 5,
+//            1 if touch_alt is set
+//   oblique: north and east velocity over norm.v, down position over norm.x
+// A MixedTask lane evaluates only its own sub-task; the JAX package evaluates
+// all of them and selects, which gives the same value per lane.
+__device__ void task_reward(const float* C, const float4* __restrict__ row,
+                            const Heli& s, const Heli& d, float& reward,
+                            bool& succ) {
+  // the whole row at once: the loads sit at the end of the step's dependency
+  // chain, so one round trip instead of one per use
+  const float4 lo = row[0], hi = row[1];
+  const float P[6] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y};
+  const int kind = (int)P[0];
+  if (kind <= T_NONE || kind >= T_KIND_COUNT) {
+    reward = 0.0f;
+    succ = false;
+    return;
+  }
+  // body rates (every task; turning offsets the yaw rate by its target)
+  const float pn = s.p * C[K_NORM_T], qn = s.q * C[K_NORM_T];
+  const float rn = (s.r - (kind == T_TURNING ? P[1] : 0.0f)) * C[K_NORM_T];
+  const float pdn = d.p * C[K_NORM_T2], qdn = d.q * C[K_NORM_T2],
+              rdn = d.r * C[K_NORM_T2];
+  const float pqr_final = -((pn * pn + qn * qn) + rn * rn);
+  const float pqr_terminal = -((sgn(pn) * pdn + sgn(qn) * qdn) + sgn(rn) * rdn);
+  const float pqr_reward = max_nan(pqr_final, pqr_terminal);
+  const float zdn = d.z * C[K_INV_NORM_V];
+
+  switch (kind) {
+    case T_HOVER: {
+      const float en = s.x * C[K_INV_NORM_X] - P[1];
+      const float ee = s.y * C[K_INV_NORM_X] - P[2];
+      const float ed = s.z * C[K_INV_NORM_X] - P[3];
+      const float xyz_final = -((en * en + ee * ee) + ed * ed);
+      const float xdn = d.x * C[K_INV_NORM_V], ydn = d.y * C[K_INV_NORM_V];
+      const float xyz_terminal = -((sgn(en) * xdn + sgn(ee) * ydn) + sgn(ed) * zdn);
+      const float xyz_reward = max_nan(xyz_final, xyz_terminal);
+      reward = (pqr_reward + xyz_reward) * 0.5f;
+      succ = (pqr_final > -1.0f) && (xyz_final > -1.0f);
+      return;
+    }
+    case T_FORWARD:
+    case T_TURNING: {
+      const bool turning = kind == T_TURNING;
+      const float vel_target = turning ? P[2] : P[1];
+      const float dwn_target = turning ? P[3] : P[2];
+      const float vel = sqrtf((s.u * s.u + s.v * s.v) + s.w * s.w);
+      const float rate = (s.u * d.u + s.v * d.v) + s.w * d.w;
+      const float den = turning ? max_nan(vel, 1e-3f) : vel;
+      const float veldot = (rate / den) * C[K_INV_NORM_A];
+      float vel_final, dwn_final;
+      const float vel_reward = tracked(vel * C[K_INV_NORM_V] - vel_target, veldot, vel_final);
+      const float dwn_reward = tracked(s.z * C[K_INV_NORM_X] - dwn_target, zdn, dwn_final);
+      reward = ((pqr_reward + vel_reward) + dwn_reward) * C[K_THIRD];
+      succ = (pqr_final > -1.0f) && (vel_final > -1.0f) && (dwn_final > -1.0f);
+      return;
+    }
+    case T_SLALOM: {
+      const float arg = P[2] * s.x;
+      const float y_ref = P[1] * sinf(arg);
+      const float ydot_ref = P[3] * cosf(arg) * d.x;
+      float track_final, vel_final, dwn_final;
+      const float track_reward = tracked((s.y - y_ref) * C[K_INV_NORM_X],
+                                         (d.y - ydot_ref) * C[K_INV_NORM_V],
+                                         track_final);
+      const float vel_reward = tracked(d.x * C[K_INV_NORM_V] - P[4],
+                                       d.u * C[K_INV_NORM_A], vel_final);
+      const float dwn_reward = tracked(s.z * C[K_INV_NORM_X] - P[5], zdn, dwn_final);
+      reward = (((pqr_reward + track_reward) + vel_reward) + dwn_reward) * 0.25f;
+      succ = (pqr_final > -1.0f) && (track_final > -1.0f) &&
+             (vel_final > -1.0f) && (dwn_final > -1.0f);
+      return;
+    }
+    case T_LANDING: {
+      const float en = (s.x - P[1]) * C[K_INV_NORM_X];
+      const float ee = (s.y - P[2]) * C[K_INV_NORM_X];
+      const float pad_final = -(en * en + ee * ee);
+      const float pad_terminal = -((sgn(en) * d.x + sgn(ee) * d.y) * C[K_INV_NORM_V]);
+      const float pad_reward = max_nan(pad_final, pad_terminal);
+      const float sink_err = zdn - P[3];
+      const float sink_reward = -(sink_err * sink_err);
+      reward = ((pqr_reward + pad_reward) + sink_reward) * C[K_THIRD];
+      const float speed2 = (s.u * s.u + s.v * s.v) + s.w * s.w;
+      succ = (speed2 < 4.0f) && (fabsf(s.phi) < 0.15f) && (fabsf(s.theta) < 0.15f) &&
+             (pad_final > -1.0f);
+      if (P[5] != 0.0f) succ = succ && ((-s.z) < P[4]);
+      return;
+    }
+    case T_OBLIQUE: {
+      // body-to-earth rows 0 and 1 of the DCM at the post-step angles
+      // (ops/kinematics.py euler_to_rotmat, transposed)
+      const float s0 = sinf(s.phi), s1 = sinf(s.theta), s2 = sinf(s.psi);
+      const float c0 = cosf(s.phi), c1 = cosf(s.theta), c2 = cosf(s.psi);
+      const float acc_n = (c1 * c2) * d.u + (s0 * s1 * c2 - c0 * s2) * d.v +
+                          (c0 * s1 * c2 + s0 * s2) * d.w;
+      const float acc_e = (c1 * s2) * d.u + (s0 * s1 * s2 + c0 * c2) * d.v +
+                          (c0 * s1 * s2 - s0 * c2) * d.w;
+      const float an = acc_n * C[K_INV_NORM_A], ae = acc_e * C[K_INV_NORM_A];
+      const float en = d.x * C[K_INV_NORM_V] - P[1];
+      const float ee = d.y * C[K_INV_NORM_V] - P[2];
+      const float vel_final = -(en * en + ee * ee);
+      const float vel_terminal = -(sgn(en) * an + sgn(ee) * ae);
+      const float vel_reward = max_nan(vel_final, vel_terminal);
+      float dwn_final;
+      const float dwn_reward = tracked(s.z * C[K_INV_NORM_X] - P[3], zdn, dwn_final);
+      reward = ((pqr_reward + vel_reward) + dwn_reward) * C[K_THIRD];
+      succ = (pqr_final > -1.0f) && (vel_final > -1.0f) && (dwn_final > -1.0f);
+      return;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 fused_step_kernel(const float* carry_in, float* carry_out,
                   const float* __restrict__ init, const float* __restrict__ act,
                   const float* __restrict__ eta,
                   const float* __restrict__ texels,
                   const float* __restrict__ consts,
-                  float* __restrict__ collect, int n, int auto_reset, int map_h,
-                  int map_w) {
+                  const float* __restrict__ tasks, float* __restrict__ collect,
+                  int n, int auto_reset, int map_h, int map_w, int n_tasks,
+                  int select_by_id) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float* C = consts;
   const long long B = n;
+
+  // ---- this lane's task (read first: the reward's loads then hang on
+  // nothing but the row's address)
+  int task = 0;
+  if (select_by_id) {
+    const float tid = init[kTaskIdRow * B + i];
+    task = (tid >= 0.0f && tid < (float)n_tasks) ? (int)tid : -1;
+  }
 
   // ---- load the committed state
   Heli hs;
@@ -524,23 +676,13 @@ fused_step_kernel(const float* carry_in, float* carry_out,
   hn.theta = pi_bound(C, hn.theta);
   hn.psi = pi_bound(C, hn.psi);
 
-  // ---- hover reward (envs/tasks.py HoverTask.reward)
-  const float pn = hn.p * C[K_NORM_T], qn = hn.q * C[K_NORM_T], rn = hn.r * C[K_NORM_T];
-  const float pdn = k4.p * C[K_NORM_T2], qdn = k4.q * C[K_NORM_T2],
-              rdn = k4.r * C[K_NORM_T2];
-  const float pqr_final = -((pn * pn + qn * qn) + rn * rn);
-  const float pqr_terminal = -((sgn(pn) * pdn + sgn(qn) * qdn) + sgn(rn) * rdn);
-  const float pqr_reward = max_nan(pqr_final, pqr_terminal);
-  const float en = hn.x * C[K_INV_NORM_X] - C[K_HOVER_TN];
-  const float ee = hn.y * C[K_INV_NORM_X] - C[K_HOVER_TE];
-  const float ed = hn.z * C[K_INV_NORM_X] - C[K_HOVER_TD];
-  const float xyz_final = -((en * en + ee * ee) + ed * ed);
-  const float xdn = k4.x * C[K_INV_NORM_V], ydn = k4.y * C[K_INV_NORM_V],
-              zdn = k4.z * C[K_INV_NORM_V];
-  const float xyz_terminal = -((sgn(en) * xdn + sgn(ee) * ydn) + sgn(ed) * zdn);
-  const float xyz_reward = max_nan(xyz_final, xyz_terminal);
-  const float reward = (pqr_reward + xyz_reward) * 0.5f;
-  const bool succ_step = (pqr_final > -1.0f) && (xyz_final > -1.0f);
+  // ---- task reward and in-tolerance flag (envs/tasks.py)
+  float reward = 0.0f;
+  bool succ_step = false;
+  if (task >= 0) {
+    task_reward(C, reinterpret_cast<const float4*>(tasks) + (kTaskStride / 4) * task,
+                hn, k4, reward, succ_step);
+  }
 
   // ---- counters (success counted before this step's flag is added)
   const bool f_succ = succ0 >= C[K_SUCC_REQ];
@@ -586,6 +728,7 @@ fused_step_kernel(const float* carry_in, float* carry_out,
     collect[3 * B + i] = failed ? 1.0f : 0.0f;
     for (int j = 0; j < 17; ++j) collect[(4 + j) * B + i] = st[kObs0 + j];
     collect[21 * B + i] = succ_step ? 1.0f : 0.0f;
+    for (int j = 0; j < 17; ++j) collect[(22 + j) * B + i] = obs[j];
   }
   for (int j = 0; j < kStateRows; ++j) carry_out[j * B + i] = st[j];
   carry_out[kSteps * B + i] = ended ? 0.0f : steps1;
@@ -600,14 +743,17 @@ fused_step_kernel(const float* carry_in, float* carry_out,
 extern "C" int heligym_fused_step(const float* carry_in, float* carry_out,
                                   const float* init, const float* act,
                                   const float* eta, const float* texels,
-                                  const float* consts, float* collect,
-                                  int num_envs, int auto_reset, int map_h,
-                                  int map_w, void* stream) {
+                                  const float* consts, const float* tasks,
+                                  float* collect, int num_envs, int auto_reset,
+                                  int map_h, int map_w, int n_tasks,
+                                  int select_by_id, void* stream) {
   const int blocks = (num_envs + kThreads - 1) / kThreads;
   fused_step_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      carry_in, carry_out, init, act, eta, texels, consts, collect, num_envs,
-      auto_reset, map_h, map_w);
+      carry_in, carry_out, init, act, eta, texels, consts, tasks, collect,
+      num_envs, auto_reset, map_h, map_w, n_tasks, select_by_id);
   return (int)cudaGetLastError();
 }
 
 extern "C" int heligym_fused_step_const_count() { return K_COUNT; }
+extern "C" int heligym_fused_step_task_kind_count() { return T_KIND_COUNT; }
+extern "C" int heligym_fused_step_task_stride() { return kTaskStride; }

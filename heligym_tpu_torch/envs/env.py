@@ -63,6 +63,13 @@ class EnvState:
     steps: torch.Tensor      # i32 step count this episode
     successed_steps: torch.Tensor  # i32 accumulated success steps
     init: ResetSnapshot      # auto-reset target
+    # per-env task selector for MixedTask batches (i32, zeros by default);
+    # ignored by single-task envs, kept across auto-resets
+    task_id: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.task_id is None:
+            object.__setattr__(self, "task_id", torch.zeros_like(self.steps))
 
     def replace(self, **kw) -> "EnvState":
         return dataclasses.replace(self, **kw)
@@ -191,13 +198,14 @@ class HeliEnv:
         return new, wind_ned
 
     def step_physics(self, heli: HeliState, wind: WindState, wind_action4,
-                     eta3, action4, h_ground):
+                     eta3, action4, h_ground, task_id=None):
         """Wind + helicopter + reward, no noise/terrain/termination: the code
         the fused step's plain version runs on row views."""
         wind_new, wind_ned = self.wind_step(wind, wind_action4, eta3)
         heli_new, dots, obs = self.heli_step_with_h(heli, action4, wind_ned,
                                                     h_ground)
-        reward, success_step = self.task.reward(self.normalizers, heli_new, dots)
+        reward, success_step = self.task.reward(self.normalizers, heli_new,
+                                                dots, task_id=task_id)
         return wind_new, wind_ned, heli_new, dots, obs, reward, success_step
 
     def _is_failed(self, heli: HeliState, dots: HeliState, h_ground):
@@ -235,7 +243,7 @@ class HeliEnv:
         h_ground = terrain_ops.ground_height(self.terrain, es.heli.x, es.heli.y)
         wind_new, wind_ned, heli_new, dots, obs_t, reward, success_step = (
             self.step_physics(es.heli, es.wind, wind_action, eta3, action4,
-                              h_ground))
+                              h_ground, task_id=es.task_id))
         obs = torch.stack(obs_t, dim=-1)
         steps = es.steps + 1
 
@@ -253,7 +261,8 @@ class HeliEnv:
 
         new_es = EnvState(heli=heli_new, wind=wind_new, dots=dots, obs=obs,
                           wind_ned=torch.stack(wind_ned, dim=-1), steps=steps,
-                          successed_steps=successed_steps, init=es.init)
+                          successed_steps=successed_steps, init=es.init,
+                          task_id=es.task_id)
         out = StepOutput(obs=obs, reward=reward, done=done, truncated=time_up,
                          failed=failed, successed=successed, time_up=time_up)
         return new_es, out

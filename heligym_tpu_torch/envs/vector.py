@@ -8,7 +8,7 @@ step (`ops/cuda/fused_step.py`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -55,10 +55,25 @@ class VectorHeliEnv:
     num_envs: int
     auto_reset: bool = True
 
+    def reset(self, trim_cond: Optional[dict] = None) -> Tuple[EnvState, torch.Tensor]:
+        """Solve the trim once on the host and broadcast it to every env."""
+        return self.reset_from_trim(self.env.trim_result(trim_cond))
+
     def reset_from_trim(self, tr: TrimResult) -> Tuple[EnvState, torch.Tensor]:
         es_single, _ = self.env.reset_from_trim(tr)
         es = broadcast_state(es_single, self.num_envs)
         return es, es.obs
+
+    def assign_tasks(self, es: EnvState, task_ids) -> EnvState:
+        """Per-env task assignment for MixedTask batches. `task_ids`:
+        (num_envs,) int indices into the MixedTask's sub-task tuple.
+        Assignments persist across auto-resets."""
+        ids = torch.as_tensor(task_ids).to(device=es.steps.device,
+                                           dtype=torch.int32)
+        if ids.shape != es.steps.shape:
+            raise ValueError(f"task_ids: expected shape {tuple(es.steps.shape)}, "
+                             f"got {tuple(ids.shape)}")
+        return es.replace(task_id=ids)
 
     def step_with_eta(self, es: EnvState, actions, eta) -> Tuple[EnvState, StepOutput]:
         """Lockstep transition with injected noise `eta` (num_envs, 3)."""
@@ -73,3 +88,17 @@ class VectorHeliEnv:
         eta = torch.randn((self.num_envs, 3), generator=generator,
                           device=es.obs.device) * (1.0 / self.env.dt) ** 0.5
         return self.step_with_eta(es, actions, eta)
+
+
+def rollout(venv: VectorHeliEnv, es: EnvState, policy: Callable, steps: int,
+            policy_params=None, generator: Optional[torch.Generator] = None):
+    """Eager rollout: `policy(policy_params, obs) -> actions` each step.
+    Returns (final_state, StepOutput stacked over time with leading axis
+    `steps`)."""
+    outs = []
+    for _ in range(steps):
+        es, out = venv.step(es, policy(policy_params, es.obs), generator)
+        outs.append(out)
+    stacked = StepOutput(**{f.name: torch.stack([getattr(o, f.name) for o in outs])
+                            for f in dataclasses.fields(StepOutput)})
+    return es, stacked

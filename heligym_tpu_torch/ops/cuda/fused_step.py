@@ -2,11 +2,13 @@
 
 Counterpart of the JAX package's `ops/pallas/fused_step.py`. The kernel
 (`csrc/fused_step.cu`) runs one env per thread: Dryden wind RK4, helicopter
-RK4, the hover reward, counters, termination at the post-step terrain height
-(gathered in the kernel from the packed texel table), the collect row and
-the auto-reset select. Each launch finishes its own transition, so the JAX
-path's one-step-late flag pipelining and its XLA epilogue are gone, and its
-outputs equal `HeliEnv.step_with_eta` followed by `auto_reset`.
+RK4, the task reward (every task of `envs/tasks.py`; a `MixedTask` lane
+evaluates the sub-task its task id names), counters, termination at the
+post-step terrain height (gathered in the kernel from the packed texel
+table), the collect row and the auto-reset select. Each launch finishes its
+own transition, so the JAX path's one-step-late flag pipelining and its XLA
+epilogue are gone, and its outputs equal `HeliEnv.step_with_eta` followed by
+`auto_reset`.
 
 `fused_step` is the wrapper: CUDA tensors launch the kernel (or raise); CPU
 tensors run `fused_step_plain`, the same function written with the port's
@@ -15,22 +17,29 @@ torch modules. Nothing falls back from one to the other.
 Row maps (envs contiguous within a row):
   carry (63, B): 0-17 heli (HELI_STATE_FIELDS order) | 18-22 wind |
     23-39 obs | 40-57 dots | 58-60 wind_ned | 61 steps | 62 successed_steps
-  init (61, B): rows 0-60 of a fresh episode's carry (the ResetSnapshot)
-  collect (22, B): 0 reward | 1 done | 2 truncated | 3 failed |
-    4-20 obs after auto-reset | 21 succ_step (in-tolerance flag)
+  init (62, B): rows 0-60 of a fresh episode's carry (the ResetSnapshot) |
+    61 task_id (a small integer, exact in f32)
+  collect (39, B): 0 reward | 1 done | 2 truncated | 3 failed |
+    4-20 obs after auto-reset | 21 succ_step (in-tolerance flag) |
+    22-38 obs before auto-reset (what the value bootstrap reads)
   act (B, 4); eta (3, B) already scaled by 1/sqrt(dt).
+  tasks (n_tasks, 8): kind (index into TASK_KINDS) | the task's `folded()`
+    targets, zero-padded (a row is two aligned 16-byte loads).
+
+`build_fused_rollout` drives it with given actions, `build_fused_policy_rollout`
+with a policy in the loop (the RL collection path).
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ...envs.env import EnvState, HeliEnv, _non_finite
-from ...envs.tasks import HoverTask
+from ...envs.tasks import MixedTask
 from ...ops import dryden, terrain as terrain_ops
 from ...ops.state import HeliState, WindState
 from ...utils.constants import D2R, EPS, RK4_SIXTH, SQRT_3, TWO_D_PI
@@ -41,18 +50,21 @@ REPLACES = "heligym_tpu/ops/pallas/fused_step.py:201"
 
 # carry-block row offsets
 H0, W0, O0, D0, N0 = 0, 18, 23, 40, 58
-SROWS = 61                      # state rows (also the init block's rows)
+SROWS = 61                      # state rows
 STEPS, SUCC = 61, 62
 CROWS = 63
+# init-block rows: the state rows, then the task id
+ITID, IROWS = 61, 62
 # collect-block rows
-CREW, CDONE, CTRUNC, CFAIL, COBS0, CSUCC, XROWS = 0, 1, 2, 3, 4, 21, 22
+CREW, CDONE, CTRUNC, CFAIL, COBS0, CSUCC, CFINAL0, XROWS = 0, 1, 2, 3, 4, 21, 22, 39
 
 # Bytes one env-step must move: the carry in and out, the action, the noise,
-# two texel rows; the collect block when collected; the init block only in
-# lanes whose episode ended.
+# two texel rows; the collect block when collected; the init block's state
+# rows only in lanes whose episode ended; its task-id row for a MixedTask.
 BYTES_PER_ENV_STEP = 4 * (2 * CROWS + 4 + 3 + 2 * 3)
 BYTES_COLLECT = 4 * XROWS
 BYTES_RESET = 4 * SROWS
+BYTES_TASK_ID = 4
 
 # Launches of the kernel (not of the plain version) since import.
 launches = 0
@@ -90,8 +102,7 @@ CONST_NAMES = (
     *[f"TEP_B_{k}" for k in range(12)],
     "TB_A", "TB_B", "P12", "P04", "SW_LO", "AZC_LO", "AZS_LO", "INV_1000",
     "TWO_D_PI", "TWO_SQRT3",
-    "NORM_T", "NORM_T2", "INV_NORM_X", "INV_NORM_V", "HOVER_TN", "HOVER_TE",
-    "HOVER_TD",
+    "NORM_T", "NORM_T2", "INV_NORM_X", "INV_NORM_V", "INV_NORM_A", "THIRD",
     "TIME_UP_STEPS", "SUCC_REQ", "VTIP005", "ANG60", "NS_HALF", "EW_HALF",
     "INV_XSCALE", "INV_YSCALE", "HALF_H", "HALF_W", "HM1",
 )
@@ -103,13 +114,12 @@ def const_values(env: HeliEnv) -> dict:
     float32 once, where it meets a tensor). `recip32` marks a division by a
     constant, which XLA and PyTorch's CUDA kernels turn into a multiply by
     the float32 reciprocal."""
-    p, norm, task = env.params, env.normalizers, env.task
+    p, norm = env.params, env.normalizers
     H, E, MR, TR = p.HELI, p.ENV, p.MR, p.TR
     FUS, HT, VT, LG = p.FUS, p.HT, p.VT, p.LG
     wp = env.wind_params
     r_factor, col_keys, row_a, row_b = dryden.tep_static_row(wp.turbulence_level)
     w20 = wp.turbulence_level / 7.0 * 88.61
-    tn, te, td = task.targets_normalized(norm)
     h, w = env.terrain.hmap.shape
     v = {
         "D2R": D2R,
@@ -166,7 +176,7 @@ def const_values(env: HeliEnv) -> dict:
         "TWO_SQRT3": 2.0 * SQRT_3,
         "NORM_T": norm.t, "NORM_T2": norm.t ** 2,
         "INV_NORM_X": recip32(norm.x), "INV_NORM_V": recip32(norm.v),
-        "HOVER_TN": tn, "HOVER_TE": te, "HOVER_TD": td,
+        "INV_NORM_A": recip32(norm.a), "THIRD": recip32(3.0),
         "TIME_UP_STEPS": float(env.time_up_steps),
         "SUCC_REQ": float(env.success_steps_required),
         "VTIP005": MR.V_TIP * 0.05, "ANG60": 60.0 * D2R,
@@ -178,18 +188,43 @@ def const_values(env: HeliEnv) -> dict:
     return v
 
 
+# Task kinds of the kernel's task table, in the order of `enum TaskKind` in
+# csrc/fused_step.cu; a task names its kind with `Task.KIND`.
+TASK_KINDS = ("none", "hover", "forward", "turning", "slalom", "landing",
+              "oblique")
+TASK_STRIDE = 8                 # kind + up to 5 folded targets + 2 pad (two float4)
+
+
+def task_table(env: HeliEnv) -> np.ndarray:
+    """The (n_tasks, TASK_STRIDE) f32 table the kernel reads: one row per
+    sub-task of a MixedTask, one row for a plain task. Each row is the
+    task's kind and its `folded()` targets — the very floats `Task.reward`
+    uses — zero-padded."""
+    subs = env.task.tasks if isinstance(env.task, MixedTask) else (env.task,)
+    if not subs:
+        raise ValueError("MixedTask needs at least one sub-task")
+    table = np.zeros((len(subs), TASK_STRIDE), np.float32)
+    for row, task in zip(table, subs):
+        if task.KIND not in TASK_KINDS:
+            raise NotImplementedError(
+                f"the fused CUDA step has no reward for {type(task).__name__}")
+        targets = task.folded(env.normalizers)
+        row[0] = TASK_KINDS.index(task.KIND)
+        row[1:1 + len(targets)] = targets
+    return table
+
+
 @functools.lru_cache(maxsize=8)
-def _const_table(env: HeliEnv) -> torch.Tensor:
+def _tables(env: HeliEnv) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(constant table, task table) of `env` on its device."""
     vals = const_values(env)
-    table = np.array([vals[n] for n in CONST_NAMES], dtype=np.float32)
-    return torch.from_numpy(table).to(env.device)
+    consts = np.array([vals[n] for n in CONST_NAMES], dtype=np.float32)
+    return (torch.from_numpy(consts).to(env.device),
+            torch.from_numpy(task_table(env)).to(env.device))
 
 
 def _check_supported(env: HeliEnv) -> None:
-    if type(env.task) is not HoverTask:
-        raise NotImplementedError(
-            f"the fused CUDA step implements HoverTask only, not "
-            f"{type(env.task).__name__}")
+    """Every task runs in the kernel; only a wing term does not."""
     if env.params.WN.ZUW != 0.0:
         raise NotImplementedError("the fused CUDA step has no wing term")
 
@@ -197,14 +232,15 @@ def _check_supported(env: HeliEnv) -> None:
 # -- packing ---------------------------------------------------------------
 
 def pack(es: EnvState) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(carry (63, B), init (61, B)) from a batched EnvState."""
+    """(carry (63, B), init (62, B)) from a batched EnvState."""
     carry = torch.cat([
         es.heli.rows(), es.wind.rows(), es.obs.T, es.dots.rows(), es.wind_ned.T,
         es.steps.to(torch.float32)[None],
         es.successed_steps.to(torch.float32)[None]], dim=0).contiguous()
     s = es.init
     init = torch.cat([s.heli.rows(), s.wind.rows(), s.obs.T, s.dots.rows(),
-                      s.wind_ned.T], dim=0).contiguous()
+                      s.wind_ned.T, es.task_id.to(torch.float32)[None]],
+                     dim=0).contiguous()
     return carry, init
 
 
@@ -230,7 +266,8 @@ def fused_step_plain(env: HeliEnv, carry, init, act, eta, auto_reset: bool = Tru
     h_ground = terrain_ops.ground_height(env.terrain, heli.x, heli.y)
     wind_new, wnd, heli_new, dots, obs_t, reward, succ_step = env.step_physics(
         heli, wind, (obs[4], obs[5], obs[6], obs[16]),
-        (eta[0], eta[1], eta[2]), tuple(act[:, i] for i in range(4)), h_ground)
+        (eta[0], eta[1], eta[2]), tuple(act[:, i] for i in range(4)), h_ground,
+        task_id=init[ITID].to(torch.int32))
 
     # counters: success counted before this step's flag is added
     steps1 = carry[STEPS] + 1.0
@@ -244,17 +281,18 @@ def fused_step_plain(env: HeliEnv, carry, init, act, eta, auto_reset: bool = Tru
     failed = env._is_failed(heli_new, dots, h_post) | bad
     done = failed | f_succ
 
-    state = torch.cat([heli_new.rows(), wind_new.rows(), torch.stack(obs_t),
+    final_obs = torch.stack(obs_t)
+    state = torch.cat([heli_new.rows(), wind_new.rows(), final_obs,
                        dots.rows(), torch.stack(wnd)], dim=0)
     if auto_reset:
         ended = done | time_up
-        state = torch.where(ended, init, state)
+        state = torch.where(ended, init[:SROWS], state)
         steps1 = torch.where(ended, 0.0, steps1)
         succ1 = torch.where(ended, 0.0, succ1)
     carry_new = torch.cat([state, steps1[None], succ1[None]], dim=0)
     f = lambda b: b.to(torch.float32)[None]
     collect = torch.cat([reward[None], f(done), f(time_up), f(failed),
-                         state[O0:D0], f(succ_step)], dim=0)
+                         state[O0:D0], f(succ_step), final_obs], dim=0)
     return carry_new, collect
 
 
@@ -306,7 +344,8 @@ def launch_args(env: HeliEnv, carry, init, act, eta, auto_reset, carry_out,
     _check_supported(env)
     n, dev = carry.shape[1], carry.device
     texels = env.terrain.packed
-    for name, t, shape in (("carry", carry, (CROWS, n)), ("init", init, (SROWS, n)),
+    consts, tasks = _tables(env)
+    for name, t, shape in (("carry", carry, (CROWS, n)), ("init", init, (IROWS, n)),
                            ("act", act, (n, 4)), ("eta", eta, (3, n)),
                            ("terrain.packed", texels, (texels.shape[0], 3)),
                            ("carry_out", carry_out, (CROWS, n)),
@@ -321,9 +360,10 @@ def launch_args(env: HeliEnv, carry, init, act, eta, auto_reset, carry_out,
     map_h, map_w = env.terrain.hmap.shape
     return (carry.data_ptr(), carry_out.data_ptr(), init.data_ptr(),
             act.data_ptr(), eta.data_ptr(), texels.data_ptr(),
-            _const_table(env).data_ptr(),
+            consts.data_ptr(), tasks.data_ptr(),
             None if collect_out is None else collect_out.data_ptr(),
-            n, int(auto_reset), map_h, map_w,
+            n, int(auto_reset), map_h, map_w, tasks.shape[0],
+            int(isinstance(env.task, MixedTask)),
             torch.cuda.current_stream(dev).cuda_stream)
 
 
@@ -335,12 +375,14 @@ def kernel_fn(flags: Optional[Tuple[str, ...]] = None):
 
     from . import build
     lib = build.load(KERNEL, flags or build.NVCC_FLAGS)
-    if lib.heligym_fused_step_const_count() != len(CONST_NAMES):
-        raise RuntimeError("csrc/fused_step.cu's constant layout differs from "
-                           "CONST_NAMES")
+    if (lib.heligym_fused_step_const_count() != len(CONST_NAMES)
+            or lib.heligym_fused_step_task_kind_count() != len(TASK_KINDS)
+            or lib.heligym_fused_step_task_stride() != TASK_STRIDE):
+        raise RuntimeError("csrc/fused_step.cu's constant or task-table layout "
+                           "differs from CONST_NAMES / TASK_KINDS")
     fn = lib.heligym_fused_step
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
     fn.restype = ci
     return fn
 
@@ -395,5 +437,58 @@ def build_fused_rollout(env: HeliEnv, num_envs: int, steps: int,
         if "obs" in collect:
             outs["obs"] = xbuf[:, COBS0:CSUCC].permute(0, 2, 1)
         return unpack(es, carry), outs
+
+    return rollout
+
+
+def build_fused_policy_rollout(env: HeliEnv, num_envs: int, steps: int,
+                               policy_fn: Callable, auto_reset: bool = True):
+    """Fused rollout driven by a policy in the loop (the RL collection
+    path): per step, `policy_fn(policy_params, obs (B, 17), generator) ->
+    (actions (B, 4) in [-1, 1], aux dict)` runs in PyTorch, then the physics
+    runs in one `fused_step`. Returns `rollout(es, policy_params,
+    generator=None, eta_seq=None) -> (es', traj)`.
+
+    `traj` holds per transition, leading axis `steps`: "obs" (the obs the
+    policy saw: after the previous transition's auto-reset), "action",
+    "reward", "terminated", "truncated", "failed", "succ_step" (bool),
+    "final_obs" (the obs after the step, before auto-reset: what a
+    truncation-aware GAE bootstraps from), plus the policy's aux entries.
+    The Dryden noise of the whole rollout is drawn at once from
+    `generator`, before the policy's draws; `eta_seq` (steps, 3, num_envs),
+    already scaled by 1/sqrt(dt), replaces it (the parity-test seam).
+    Nothing here records gradients.
+    """
+    def rollout(es: EnvState, policy_params,
+                generator: Optional[torch.Generator] = None, eta_seq=None):
+        dev = es.obs.device
+        if eta_seq is None:
+            eta_seq = torch.randn((steps, 3, num_envs), generator=generator,
+                                  device=dev) * (1.0 / env.dt) ** 0.5
+        eta_seq = eta_seq.contiguous()
+        carry, init = pack(es)
+        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+        xbuf = new(steps, XROWS, num_envs)
+        obs_buf, act_buf = new(steps, num_envs, 17), new(steps, num_envs, 4)
+        aux_seq = {}
+        with torch.no_grad():
+            for t in range(steps):
+                # the carry's obs rows already hold the post-reset obs
+                obs_buf[t].copy_(carry[O0:D0].T)
+                actions, aux = policy_fn(policy_params, obs_buf[t], generator)
+                act_buf[t].copy_(actions)
+                for k, v in aux.items():
+                    aux_seq.setdefault(k, []).append(v)
+                fused_step(env, carry, init, act_buf[t], eta_seq[t],
+                           auto_reset=auto_reset, carry_out=carry,
+                           collect_out=xbuf[t])
+        traj = {"obs": obs_buf, "action": act_buf, "reward": xbuf[:, CREW],
+                "terminated": xbuf[:, CDONE] != 0,
+                "truncated": xbuf[:, CTRUNC] != 0,
+                "failed": xbuf[:, CFAIL] != 0,
+                "succ_step": xbuf[:, CSUCC] != 0,
+                "final_obs": xbuf[:, CFINAL0:XROWS].permute(0, 2, 1),
+                **{k: torch.stack(v) for k, v in aux_seq.items()}}
+        return unpack(es, carry), traj
 
     return rollout

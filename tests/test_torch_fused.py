@@ -158,6 +158,35 @@ def test_const_names_match_cuda_enum(env):
 
 
 def test_kernel_covers_hover_only(env):
-    fs._check_supported(env)
+    """What the kernel covers: every task and MixedTask; only a wing term is
+    refused. The task table's kinds follow `enum TaskKind` of the CUDA
+    source, and each row holds the floats the task's own reward uses."""
+    import dataclasses
+    from heligym_tpu_torch.envs import (ForwardFlightTask, LandingTask, MixedTask,
+                                        ObliqueFlightTask, SlalomTask,
+                                        TurningFlightTask)
+    with open(os.path.join(REPO, "heligym_tpu_torch", "csrc", "fused_step.cu")) as f:
+        body = re.search(r"enum TaskKind \{(.*?)\};", f.read(), re.S).group(1)
+    kinds = [n.strip() for n in body.split(",") if n.strip()]
+    assert kinds == ["T_" + k.upper() for k in fs.TASK_KINDS] + ["T_KIND_COUNT"]
+
+    singles = (Task(), HoverTask(), ForwardFlightTask(), TurningFlightTask(),
+               SlalomTask(), LandingTask(), LandingTask(touch_alt=3900.0),
+               ObliqueFlightTask())
+    for task in singles:
+        e = env.replace(task=task)
+        fs._check_supported(e)
+        table = fs.task_table(e)
+        assert table.shape == (1, fs.TASK_STRIDE) and table.dtype == np.float32
+        assert fs.TASK_KINDS[int(table[0, 0])] == task.KIND
+        folded = task.folded(e.normalizers)
+        np.testing.assert_array_equal(table[0, 1:1 + len(folded)],
+                                      np.asarray(folded, np.float32))
+    mixed = env.replace(task=MixedTask(tasks=singles[1:]))
+    assert fs.task_table(mixed).shape == (len(singles) - 1, fs.TASK_STRIDE)
+    with pytest.raises(ValueError):
+        fs.task_table(env.replace(task=MixedTask()))
+    wn = dataclasses.replace(env.params.WN, ZUW=1.0)
     with pytest.raises(NotImplementedError):
-        fs._check_supported(env.replace(task=Task()))
+        fs._check_supported(env.replace(
+            params=dataclasses.replace(env.params, WN=wn)))

@@ -413,3 +413,45 @@ def test_hover_reward_equal_jax(p):
         jnorm, JHeliState.unflatten(a), JHeliState.unflatten(b)))(st, dt)
     np.testing.assert_allclose(r.numpy(), np.asarray(jr), rtol=1e-6, atol=1e-6)
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+
+
+# -- the gather probe's plain version -------------------------------------------
+
+@pytest.mark.parametrize("axis,shape", [
+    (0, (8, 128)), (0, (64, 128)), (0, (64, 1024)), (0, (256, 1024)),
+    (0, (1024, 1024)), (1, (8, 128)), (1, (8, 1024)), (1, (64, 1024)),
+    (1, (1024, 1024))])
+def test_gather_plain_equals_numpy(axis, shape):
+    """On CPU tensors the gather wrappers run their plain version, which
+    equals np.take_along_axis on the probe's seed-0 inputs; nothing is
+    counted as a kernel launch."""
+    from heligym_tpu_torch.ops.cuda import gather
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(shape).astype(np.float32)
+    idx = rng.integers(0, shape[axis], size=shape).astype(np.int32)
+    fn = gather.gather_axis0 if axis == 0 else gather.gather_axis1
+    before = dict(gather.launches)
+    out = fn(torch.from_numpy(x), torch.from_numpy(idx))
+    np.testing.assert_array_equal(out.numpy(), np.take_along_axis(x, idx, axis=axis))
+    assert gather.launches == before
+
+
+def test_gather_wrapper_refuses_bad_inputs():
+    from heligym_tpu_torch.ops.cuda import gather
+    x = torch.zeros((4, 6))
+    idx = torch.zeros((4, 6), dtype=torch.int32)
+    with pytest.raises(IndexError):
+        gather.gather_axis0(x, idx + 4)
+    with pytest.raises(IndexError):
+        gather.gather_axis1(x, idx - 1)
+    assert gather.gather_axis1(x, idx + 5).shape == (4, 6)
+    with pytest.raises(ValueError):
+        gather.gather_axis0(x, idx[:2])
+    with pytest.raises(ValueError):
+        gather.gather_axis0(x, idx.to(torch.int64))
+    with pytest.raises(ValueError):
+        gather.gather_axis0(x.to(torch.float64), idx)
+    with pytest.raises(ValueError):
+        gather.gather_axis0(torch.zeros(4), torch.zeros(4, dtype=torch.int32))
+    empty = gather.gather_axis0(torch.zeros((0, 6)), torch.zeros((0, 6), dtype=torch.int32))
+    assert empty.shape == (0, 6)
