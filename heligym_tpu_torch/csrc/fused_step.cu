@@ -1,33 +1,42 @@
-// fused_step.cu — one whole env transition per thread, for Hopper (sm_90a).
+// fused_step.cu — whole env transitions on Hopper (sm_90a): one launch runs
+// one step (fused_step_kernel) or T steps (fused_rollout_kernel) of every env.
 //
 // Replaces the TPU kernel heligym_tpu/ops/pallas/fused_step.py::_kernel
 // (launched by build_fused_core, pl.pallas_call at :201).
 //
-// What it computes, per env (one thread): Dryden wind RK4 with the
-// reference's aliased k4, helicopter RK4 (4x heli_dynamics: rotor, tail rotor,
-// fuselage, empennage, gear, atmosphere, kinematics), pi_bound on 7 angles,
-// the task reward and in-tolerance flag (hover, forward, turning, slalom,
-// landing, oblique; for a MixedTask each thread evaluates the one sub-task its
-// task id names), the step/success counters, done/truncated/failed at the
-// post-step terrain height, the collect row, and the auto-reset select. The
-// terrain gather (committed position for the physics, post-step position for
-// the crash test) happens here, from the packed (H*W, 3) texel table; the TPU
-// kernel had to leave it to XLA and pipeline its flags one step late.
+// What it computes, per env: Dryden wind RK4 with the reference's aliased k4,
+// helicopter RK4 (4x heli_dynamics: rotor, tail rotor, fuselage, empennage,
+// gear, atmosphere, kinematics), pi_bound on 7 angles, the task reward and
+// in-tolerance flag (hover, forward, turning, slalom, landing, oblique; for a
+// MixedTask each env evaluates the one sub-task its task id names), the
+// step/success counters, done/truncated/failed at the post-step terrain
+// height, the collect rows, and the auto-reset select. The terrain gather
+// (committed position for the physics, post-step position for the crash
+// test) happens here, from the packed (H*W, 3) texel table; the TPU kernel had
+// to leave it to XLA and pipeline its flags one step late.
 //
-// What bounds it on the H100: bytes. One env-step reads the 63-row carry,
-// 4 actions, 3 noise values and two 12-byte texel rows, writes the carry and
-// the 39-row collect block, and reads the 61 state rows of the init block only
-// in lanes whose episode ended (and its task-id row only for a MixedTask):
-// about 700 bytes against some 4k float operations, far below the card's
-// ~20 flop/byte balance. At 4096 envs that is ~2.9 MB, under
-// a microsecond at 3.35 TB/s — but 4096 threads fill less than one warp per
-// SM, so in practice one launch is latency-bound on the serial dependency
-// chain of the RK4 stages.
-// What the design does about it: state lives in registers for the whole
-// transition; the (rows, B) layout keeps envs contiguous so neighbouring
-// threads load neighbouring addresses (coalesced); the init block is read
-// only where needed; the collect block is skipped when the caller collects
-// nothing.
+// What bounds it on the H100: on paper, bytes. One env-step reads 4 actions,
+// 3 noise values and two 12-byte texel rows and writes the 39-row collect
+// block (when collected); the 63-row carry is read and written once per
+// launch, and the 61 state rows of the init block are read only in lanes
+// whose episode ended. Some 4k float operations per env-step sit far below
+// the card's ~20 flop/byte balance. In fact, latency: a few thousand envs
+// give each SM sub-partition at most one warp, whose RK4 stages are one long
+// serial dependency chain.
+// What the design does about it:
+//   * the constant table and the task table travel by value in the kernel's
+//     parameter block (a __grid_constant__ struct), so every constant is an
+//     operand from the constant bank, not a global load on the chain;
+//   * fused_rollout_kernel keeps the carry in registers for T steps: one
+//     launch, one carry load and one carry store per rollout;
+//   * the RK4 stages run as loops, so the kernel holds one copy of
+//     heli_dynamics and of wind_dynamics, not four: half the code of the
+//     fully inlined form, which one warp per scheduler streams every step;
+//   * one thread per env, in small blocks (the block size is a launch
+//     argument: 32, 64 or 128 threads), so that a few thousand envs spread
+//     over many SMs (4096 envs in 64-thread blocks: 64 SMs);
+//   * envs are contiguous within a row of every block, so neighbouring
+//     threads load and store neighbouring addresses.
 //
 // Numerics: compiled with -fmad=false and without --use_fast_math. FMA
 // contraction changes rounding and drifts the chaotic dynamics away from the
@@ -35,21 +44,25 @@
 // Python-float constant subexpression of the JAX code is folded on the host,
 // in float64 with the JAX grouping, into the constant table below; a division
 // by a constant is a multiply by its float32 reciprocal, as XLA and PyTorch's
-// CUDA kernels compute it. No double arithmetic here.
+// CUDA kernels compute it. No double arithmetic here. Both launch forms run
+// the same float operations in the same order, so their outputs are
+// bit-identical to each other and to the plain version.
 //
 // Row maps (envs contiguous within a row):
 //   carry (63, B): 0-17 heli (HELI_STATE_FIELDS) | 18-22 wind | 23-39 obs |
 //                  40-57 dots | 58-60 wind_ned | 61 steps | 62 successed_steps
 //   init  (62, B): rows 0-60 of the carry of a fresh episode | 61 task id
 //                  (a small integer, exact in f32)
-//   collect (39, B): 0 reward | 1 done | 2 truncated | 3 failed |
+//   collect (T, 39, B): 0 reward | 1 done | 2 truncated | 3 failed |
 //                  4-20 obs after auto-reset | 21 in-tolerance flag |
 //                  22-38 obs before auto-reset (the value bootstrap's input)
-//   act (B, 4) row-major; eta (3, B) already scaled by 1/sqrt(dt).
-//   tasks (n_tasks, 8): kind | 5 targets folded on the host (see task_reward) |
-//                  2 pad, so that a row is two aligned 16-byte loads.
+//   act (T, B, 4) row-major, or one (B, 4) held for every step (stride 0);
+//   eta (T, 3, B) already scaled by 1/sqrt(dt).
+//   tasks (n_tasks, 8), n_tasks <= kMaxTasks: kind | 5 targets folded on the
+//                  host (see task_reward) | 2 pad.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <string.h>
 
 // The constant table's layout; heligym_tpu_torch/ops/cuda/fused_step.py
 // CONST_NAMES lists the same names in the same order.
@@ -105,12 +118,33 @@ enum TaskKind {
 namespace {
 
 constexpr int kTaskStride = 8;
+constexpr int kMaxTasks = 8;
 constexpr int kTaskIdRow = 61;
 constexpr int kStateRows = 61;
 constexpr int kSteps = 61;
 constexpr int kSucc = 62;
 constexpr int kObs0 = 23;
-constexpr int kThreads = 128;
+constexpr int kCollectRows = 39;
+constexpr int kMaxThreads = 128;
+
+// The parameter block of both kernels, passed by value (708 + 256 bytes of
+// tables, well inside the 4 KB of kernel parameters).
+struct Params {
+  float c[K_COUNT];                        // the constant table
+  float tasks[kMaxTasks * kTaskStride];    // the task table, zero-padded
+};
+struct Args {
+  Params p;
+  const float* carry_in;
+  float* carry_out;
+  const float* init;
+  const float* act;
+  long long act_stride;                    // floats between two steps' actions
+  const float* eta;
+  const float* texels;
+  float* collect;                          // null: nothing collected
+  int n, steps, auto_reset, map_h, map_w, n_tasks, select_by_id;
+};
 
 struct Heli {
   float vi_mr, vi_tr, psi_mr, psi_tr, b0, b1, u, v, w, p, q, r, phi, theta,
@@ -147,8 +181,9 @@ __device__ __forceinline__ float pi_bound(const float* C, float x) {
 // Terrain height under (x, y) from the packed texel table (ops/terrain.py
 // ground_height: clip, then floor; the y-clamp uses the map's row count;
 // the interpolation factors use the edge-decremented indices).
-__device__ float ground_height(const float* C, const float* __restrict__ texels,
-                               int h, int w, float x, float y) {
+__device__ __forceinline__ float ground_height(const float* C,
+                                              const float* __restrict__ texels,
+                                              int h, int w, float x, float y) {
   float x_loc = x * C[K_INV_XSCALE] + C[K_HALF_H];
   float y_loc = y * C[K_INV_YSCALE] + C[K_HALF_W];
   x_loc = clip_nan(x_loc, 0.0f, C[K_HM1]);
@@ -176,9 +211,10 @@ __device__ __forceinline__ void cross(const float a[3], const float b[3],
 }
 
 // ops/eom.py::heli_dynamics. `obs` is the 17-dim observation.
-__device__ void heli_dynamics(const float* C, const Heli& s, const float act[4],
-                              const float wind[3], float h_ground, Heli& d,
-                              float obs[17]) {
+__device__ __forceinline__ void heli_dynamics(const float* C, const Heli& s,
+                                              const float act[4],
+                                              const float wind[3], float h_ground,
+                                              Heli& d, float obs[17]) {
   // control mapping (eom.py control_inputs)
   const float coll = C[K_D2R] * (C[K_COL_OS] + 0.5f * act[0] * C[K_COL_SPAN] + C[K_COL_MID]);
   const float lon = C[K_D2R] * (0.5f * act[1] * C[K_LON_SPAN] + C[K_LON_MID]);
@@ -380,7 +416,7 @@ __device__ void heli_dynamics(const float* C, const Heli& s, const float act[4],
 
 // The TEP table lookup at the static turbulence level (dryden.py
 // _tep_lookup_static_row): dynamic column bracket, blend of the two rows.
-__device__ float tep_lookup(const float* C, float col_key) {
+__device__ __forceinline__ float tep_lookup(const float* C, float col_key) {
   int idx = 1;
   for (int k = 0; k < 12; ++k) idx += (C[K_TEP_KEY_0 + k] < col_key) ? 1 : 0;
   const int c = idx < 2 ? 2 : (idx > 12 ? 12 : idx);
@@ -401,8 +437,9 @@ __device__ __forceinline__ void cos_sin_atan2(float y, float x, float& c, float&
 }
 
 // ops/dryden.py::wind_dynamics. `wa` = (ned_vel_n, ned_vel_e, ned_vel_d, h_gr).
-__device__ void wind_dynamics(const float* C, const Wind& st, const float wa[4],
-                              const float eta[3], Wind& d, float wind_ned[3]) {
+__device__ __forceinline__ void wind_dynamics(const float* C, const Wind& st,
+                                              const float wa[4], const float eta[3],
+                                              Wind& d, float wind_ned[3]) {
   const float vi_n = wa[0] + C[K_WM0], vi_e = wa[1] + C[K_WM1],
               vi_d = wa[2] + C[K_WM2];
   const float vel_inf = sqrtf(vi_n * vi_n + vi_e * vi_e + vi_d * vi_d);
@@ -490,13 +527,11 @@ __device__ __forceinline__ float tracked(float err, float rate, float& fin) {
 //   oblique: north and east velocity over norm.v, down position over norm.x
 // A MixedTask lane evaluates only its own sub-task; the JAX package evaluates
 // all of them and selects, which gives the same value per lane.
-__device__ void task_reward(const float* C, const float4* __restrict__ row,
-                            const Heli& s, const Heli& d, float& reward,
-                            bool& succ) {
-  // the whole row at once: the loads sit at the end of the step's dependency
-  // chain, so one round trip instead of one per use
-  const float4 lo = row[0], hi = row[1];
-  const float P[6] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y};
+// `row` points into the parameter block (constant bank).
+__device__ __forceinline__ void task_reward(const float* C, const float* row,
+                                            const Heli& s, const Heli& d,
+                                            float& reward, bool& succ) {
+  const float P[6] = {row[0], row[1], row[2], row[3], row[4], row[5]};
   const int kind = (int)P[0];
   if (kind <= T_NONE || kind >= T_KIND_COUNT) {
     reward = 0.0f;
@@ -597,57 +632,38 @@ __device__ void task_reward(const float* C, const float4* __restrict__ row,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-fused_step_kernel(const float* carry_in, float* carry_out,
-                  const float* __restrict__ init, const float* __restrict__ act,
-                  const float* __restrict__ eta,
-                  const float* __restrict__ texels,
-                  const float* __restrict__ consts,
-                  const float* __restrict__ tasks, float* __restrict__ collect,
-                  int n, int auto_reset, int map_h, int map_w, int n_tasks,
-                  int select_by_id) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float* C = consts;
-  const long long B = n;
-
-  // ---- this lane's task (read first: the reward's loads then hang on
-  // nothing but the row's address)
-  int task = 0;
-  if (select_by_id) {
-    const float tid = init[kTaskIdRow * B + i];
-    task = (tid >= 0.0f && tid < (float)n_tasks) ? (int)tid : -1;
-  }
-
-  // ---- load the committed state
+// One env transition. `st` holds the env's 61 state rows (rows 0-22 and the
+// four obs rows the wind reads are read; all 61 are written), `steps` and
+// `succ` its counters; `col` is this env's column of this step's collect
+// block, or null. Both kernels run exactly this function.
+__device__ __forceinline__ void env_step(const Args& A, int i, int task,
+                                         const float a[4], const float e[3],
+                                         float st[kStateRows], float& steps,
+                                         float& succ, float* col) {
+  const float* C = A.p.c;
+  const long long B = A.n;
   Heli hs;
   {
     int row = 0;
-#define LOAD(f) hs.f = carry_in[(row++) * B + i];
-    HELI_FIELDS(LOAD)
-#undef LOAD
+#define GET(f) hs.f = st[row++];
+    HELI_FIELDS(GET)
+#undef GET
   }
-  Wind ws = {carry_in[18 * B + i], carry_in[19 * B + i], carry_in[20 * B + i],
-             carry_in[21 * B + i], carry_in[22 * B + i]};
-  const float wind_act[4] = {carry_in[(kObs0 + 4) * B + i],
-                             carry_in[(kObs0 + 5) * B + i],
-                             carry_in[(kObs0 + 6) * B + i],
-                             carry_in[(kObs0 + 16) * B + i]};
-  const float steps0 = carry_in[kSteps * B + i];
-  const float succ0 = carry_in[kSucc * B + i];
-  const float a[4] = {act[4 * i], act[4 * i + 1], act[4 * i + 2], act[4 * i + 3]};
-  const float e[3] = {eta[i], eta[B + i], eta[2 * B + i]};
+  const Wind ws = {st[18], st[19], st[20], st[21], st[22]};
+  const float wind_act[4] = {st[kObs0 + 4], st[kObs0 + 5], st[kObs0 + 6],
+                             st[kObs0 + 16]};
 
-  // ---- Dryden wind RK4 with the aliased k4 (integrator.py rk4_k4only)
-  Wind k, tmp;
+  // ---- Dryden wind RK4 with the aliased k4 (integrator.py rk4_k4only).
+  // The four stages run as a loop, so the kernel holds one copy of their
+  // code; stage 0 takes the committed state itself.
+  Wind k = ws;
   float wind_ned[3];
-  wind_dynamics(C, ws, wind_act, e, k, wind_ned);
-  tmp = wind_add(ws, k, C[K_HALF_DT]);
-  wind_dynamics(C, tmp, wind_act, e, k, wind_ned);
-  tmp = wind_add(ws, k, C[K_HALF_DT]);
-  wind_dynamics(C, tmp, wind_act, e, k, wind_ned);
-  tmp = wind_add(ws, k, C[K_DT]);
-  wind_dynamics(C, tmp, wind_act, e, k, wind_ned);
+#pragma unroll 1
+  for (int stage = 0; stage < 4; ++stage) {
+    const Wind in = stage == 0 ? ws
+                               : wind_add(ws, k, stage == 3 ? C[K_DT] : C[K_HALF_DT]);
+    wind_dynamics(C, in, wind_act, e, k, wind_ned);
+  }
   Wind wn;
   wn.us = k4only(ws.us, k.us, C[K_RK4_C]);
   wn.vs0 = k4only(ws.vs0, k.vs0, C[K_RK4_C]);
@@ -656,16 +672,24 @@ fused_step_kernel(const float* carry_in, float* carry_out,
   wn.ws1 = k4only(ws.ws1, k.ws1, C[K_RK4_C]);
 
   // ---- helicopter RK4 at the committed terrain height (integrator.py rk4)
-  const float h_ground = ground_height(C, texels, map_h, map_w, hs.x, hs.y);
-  Heli k1, k2, k3, k4;
+  const float h_ground = ground_height(C, A.texels, A.map_h, A.map_w, hs.x, hs.y);
+  // The stages run as a loop (one copy of heli_dynamics' code); `sum`
+  // accumulates ((k1 + 2 k2) + 2 k3) + k4 in the reference's order and
+  // `k4` ends as the last stage's derivatives.
+  Heli k4 = hs, sum = hs;
   float obs[17];
-  heli_dynamics(C, hs, a, wind_ned, h_ground, k1, obs);
-  heli_dynamics(C, heli_add(hs, k1, C[K_HALF_DT]), a, wind_ned, h_ground, k2, obs);
-  heli_dynamics(C, heli_add(hs, k2, C[K_HALF_DT]), a, wind_ned, h_ground, k3, obs);
-  heli_dynamics(C, heli_add(hs, k3, C[K_DT]), a, wind_ned, h_ground, k4, obs);
+#pragma unroll 1
+  for (int stage = 0; stage < 4; ++stage) {
+    const Heli in = stage == 0 ? hs
+                               : heli_add(hs, k4, stage == 3 ? C[K_DT] : C[K_HALF_DT]);
+    heli_dynamics(C, in, a, wind_ned, h_ground, k4, obs);
+#define ACC(f) \
+    sum.f = stage == 0 ? k4.f : (stage == 3 ? sum.f + k4.f : sum.f + k4.f * 2.0f);
+    HELI_FIELDS(ACC)
+#undef ACC
+  }
   Heli hn;
-#define COMBINE(f) \
-  hn.f = hs.f + (((k1.f + k2.f * 2.0f) + k3.f * 2.0f) + k4.f) * C[K_RK4_C];
+#define COMBINE(f) hn.f = hs.f + sum.f * C[K_RK4_C];
   HELI_FIELDS(COMBINE)
 #undef COMBINE
   hn.psi_mr = pi_bound(C, hn.psi_mr);
@@ -680,18 +704,17 @@ fused_step_kernel(const float* carry_in, float* carry_out,
   float reward = 0.0f;
   bool succ_step = false;
   if (task >= 0) {
-    task_reward(C, reinterpret_cast<const float4*>(tasks) + (kTaskStride / 4) * task,
-                hn, k4, reward, succ_step);
+    task_reward(C, A.p.tasks + kTaskStride * task, hn, k4, reward, succ_step);
   }
 
   // ---- counters (success counted before this step's flag is added)
-  const bool f_succ = succ0 >= C[K_SUCC_REQ];
-  const float steps1 = steps0 + 1.0f;
+  const bool f_succ = succ >= C[K_SUCC_REQ];
+  const float steps1 = steps + 1.0f;
   const bool time_up = steps1 >= C[K_TIME_UP_STEPS];
-  const float succ1 = succ0 + (succ_step ? 1.0f : 0.0f);
+  const float succ1 = succ + (succ_step ? 1.0f : 0.0f);
 
   // ---- termination at the post-step terrain height (env.py is_failed)
-  const float h_post = ground_height(C, texels, map_h, map_w, hn.x, hn.y);
+  const float h_post = ground_height(C, A.texels, A.map_h, A.map_w, hn.x, hn.y);
   const float touch = h_post + C[K_WL_CG12];
   const bool cond1 = (-hn.z) - touch < 0.0f;
   const bool cond234 = (k4.z > C[K_VTIP005]) || (hn.phi > C[K_ANG60]) ||
@@ -701,10 +724,9 @@ fused_step_kernel(const float* carry_in, float* carry_out,
   const bool bad = non_finite(C, reward) || non_finite(C, hn.z) || non_finite(C, hn.u);
   const bool failed = (cond1 && cond234) || cond5 || bad;
   const bool done = failed || f_succ;
-  const bool ended = auto_reset && (done || time_up);
+  const bool ended = A.auto_reset && (done || time_up);
 
   // ---- new state rows, then the auto-reset select
-  float st[kStateRows];
   {
     int row = 0;
 #define PUT(f) st[row++] = hn.f;
@@ -719,41 +741,135 @@ fused_step_kernel(const float* carry_in, float* carry_out,
     st[58] = wind_ned[0]; st[59] = wind_ned[1]; st[60] = wind_ned[2];
   }
   if (ended) {
-    for (int j = 0; j < kStateRows; ++j) st[j] = init[j * B + i];
+    for (int j = 0; j < kStateRows; ++j) st[j] = A.init[j * B + i];
   }
-  if (collect != nullptr) {
-    collect[0 * B + i] = reward;
-    collect[1 * B + i] = done ? 1.0f : 0.0f;
-    collect[2 * B + i] = time_up ? 1.0f : 0.0f;
-    collect[3 * B + i] = failed ? 1.0f : 0.0f;
-    for (int j = 0; j < 17; ++j) collect[(4 + j) * B + i] = st[kObs0 + j];
-    collect[21 * B + i] = succ_step ? 1.0f : 0.0f;
-    for (int j = 0; j < 17; ++j) collect[(22 + j) * B + i] = obs[j];
+  if (col != nullptr) {
+    col[0 * B] = reward;
+    col[1 * B] = done ? 1.0f : 0.0f;
+    col[2 * B] = time_up ? 1.0f : 0.0f;
+    col[3 * B] = failed ? 1.0f : 0.0f;
+    for (int j = 0; j < 17; ++j) col[(4 + j) * B] = st[kObs0 + j];
+    col[21 * B] = succ_step ? 1.0f : 0.0f;
+    for (int j = 0; j < 17; ++j) col[(22 + j) * B] = obs[j];
   }
-  for (int j = 0; j < kStateRows; ++j) carry_out[j * B + i] = st[j];
-  carry_out[kSteps * B + i] = ended ? 0.0f : steps1;
-  carry_out[kSucc * B + i] = ended ? 0.0f : succ1;
+  steps = ended ? 0.0f : steps1;
+  succ = ended ? 0.0f : succ1;
+}
+
+// One thread per env: load its carry, run `n_steps` (>= 1) transitions with
+// the state in registers, store the carry.
+__device__ __forceinline__ void run(const Args& A, int n_steps) {
+  const long long env = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (env >= A.n) return;
+  const int i = (int)env;
+  const long long B = A.n;
+
+  // ---- this env's task (fixed for the launch)
+  int task = 0;
+  if (A.select_by_id) {
+    const float tid_f = A.init[kTaskIdRow * B + i];
+    task = (tid_f >= 0.0f && tid_f < (float)A.n_tasks) ? (int)tid_f : -1;
+  }
+
+  // ---- load the committed state: the rows a step reads; the first step
+  // writes every row
+  float st[kStateRows];
+  for (int j = 0; j < 23; ++j) st[j] = A.carry_in[j * B + i];
+  st[kObs0 + 4] = A.carry_in[(kObs0 + 4) * B + i];
+  st[kObs0 + 5] = A.carry_in[(kObs0 + 5) * B + i];
+  st[kObs0 + 6] = A.carry_in[(kObs0 + 6) * B + i];
+  st[kObs0 + 16] = A.carry_in[(kObs0 + 16) * B + i];
+  float steps = A.carry_in[kSteps * B + i];
+  float succ = A.carry_in[kSucc * B + i];
+
+  int t = 0;
+  do {
+    const float* act = A.act + t * A.act_stride + 4 * (long long)i;
+    const float a[4] = {act[0], act[1], act[2], act[3]};
+    const float* eta = A.eta + (long long)t * 3 * B + i;
+    const float e[3] = {eta[0], eta[B], eta[2 * B]};
+    float* col = A.collect != nullptr
+                     ? A.collect + (long long)t * kCollectRows * B + i : nullptr;
+    env_step(A, i, task, a, e, st, steps, succ, col);
+  } while (++t < n_steps);
+
+  for (int j = 0; j < kStateRows; ++j) A.carry_out[j * B + i] = st[j];
+  A.carry_out[kSteps * B + i] = steps;
+  A.carry_out[kSucc * B + i] = succ;
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+fused_step_kernel(const __grid_constant__ Args A) {
+  run(A, 1);
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+fused_rollout_kernel(const __grid_constant__ Args A) {
+  run(A, A.steps);
+}
+
+int launch(Args& a, const float* consts, const float* tasks, int block,
+           bool one_step, void* stream) {
+  if (a.n < 1 || a.steps < 1 || a.n_tasks < 1 || a.n_tasks > kMaxTasks ||
+      (block != 32 && block != 64 && block != 128))
+    return (int)cudaErrorInvalidValue;
+  memcpy(a.p.c, consts, sizeof(a.p.c));
+  memset(a.p.tasks, 0, sizeof(a.p.tasks));
+  memcpy(a.p.tasks, tasks, sizeof(float) * kTaskStride * a.n_tasks);
+  const unsigned grid = (unsigned)((a.n + block - 1) / block);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (one_step) fused_step_kernel<<<grid, block, 0, s>>>(a);
+  else fused_rollout_kernel<<<grid, block, 0, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point (bound with ctypes). `carry_out` may alias `carry_in`: each
-// thread reads its whole column before writing it. `collect` may be null.
-// Returns the cudaError_t of the launch.
+// C entry points (bound with ctypes). `consts` (K_COUNT floats) and `tasks`
+// (n_tasks x kTaskStride floats) are HOST pointers: their values travel in
+// the launch's parameter block. `carry_out` may alias `carry_in`: each env's
+// column is read before it is written. `collect` may be null. `block` is
+// the block size: 32, 64 or 128 threads. Each returns the cudaError_t of its launch (cudaErrorInvalidValue for
+// arguments it does not take).
+
+// One transition: act (B, 4), eta (3, B), collect (39, B).
 extern "C" int heligym_fused_step(const float* carry_in, float* carry_out,
                                   const float* init, const float* act,
                                   const float* eta, const float* texels,
                                   const float* consts, const float* tasks,
                                   float* collect, int num_envs, int auto_reset,
                                   int map_h, int map_w, int n_tasks,
-                                  int select_by_id, void* stream) {
-  const int blocks = (num_envs + kThreads - 1) / kThreads;
-  fused_step_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      carry_in, carry_out, init, act, eta, texels, consts, tasks, collect,
-      num_envs, auto_reset, map_h, map_w, n_tasks, select_by_id);
-  return (int)cudaGetLastError();
+                                  int select_by_id, int block, void* stream) {
+  Args a;
+  a.carry_in = carry_in; a.carry_out = carry_out; a.init = init; a.act = act;
+  a.act_stride = 0; a.eta = eta; a.texels = texels; a.collect = collect;
+  a.n = num_envs; a.steps = 1; a.auto_reset = auto_reset; a.map_h = map_h;
+  a.map_w = map_w; a.n_tasks = n_tasks; a.select_by_id = select_by_id;
+  return launch(a, consts, tasks, block, true, stream);
+}
+
+// `steps` transitions in one launch: act (steps, B, 4) with act_stride 4 B,
+// or one (B, 4) held with act_stride 0; eta (steps, 3, B); collect
+// (steps, 39, B).
+extern "C" int heligym_fused_rollout(const float* carry_in, float* carry_out,
+                                     const float* init, const float* act,
+                                     long long act_stride, const float* eta,
+                                     const float* texels, const float* consts,
+                                     const float* tasks, float* collect,
+                                     int num_envs, int steps, int auto_reset,
+                                     int map_h, int map_w, int n_tasks,
+                                     int select_by_id, int block,
+                                     void* stream) {
+  Args a;
+  a.carry_in = carry_in; a.carry_out = carry_out; a.init = init; a.act = act;
+  a.act_stride = act_stride; a.eta = eta; a.texels = texels; a.collect = collect;
+  a.n = num_envs; a.steps = steps; a.auto_reset = auto_reset; a.map_h = map_h;
+  a.map_w = map_w; a.n_tasks = n_tasks; a.select_by_id = select_by_id;
+  return launch(a, consts, tasks, block, false, stream);
 }
 
 extern "C" int heligym_fused_step_const_count() { return K_COUNT; }
 extern "C" int heligym_fused_step_task_kind_count() { return T_KIND_COUNT; }
 extern "C" int heligym_fused_step_task_stride() { return kTaskStride; }
+extern "C" int heligym_fused_step_max_tasks() { return kMaxTasks; }
+extern "C" int heligym_fused_step_param_bytes() { return (int)sizeof(Params); }

@@ -191,8 +191,9 @@ class PPOLearner:
 
     def _policy_fn(self):
         def policy_fn(p, obs, generator):
-            # stats: ObsStats or None (cfg.obs_norm off); cap: scalar log-std
-            # ceiling; toh: (B, task_dim) task one-hot on MixedTask runs
+            # stats: ObsStats or None (cfg.obs_norm off); cap: log-std
+            # ceiling (a float or a 0-d tensor); toh: (B, task_dim) task
+            # one-hot on MixedTask runs
             params, stats, cap, toh = p
             mean, log_std, value = params(self._net_in(obs, stats, toh))
             log_std = torch.clamp(log_std, max=cap)
@@ -205,10 +206,13 @@ class PPOLearner:
         return policy_fn
 
     def _collect_fused(self, params: ActorCritic, stats, cap, es: EnvState,
-                       generator: Optional[torch.Generator] = None):
+                       generator: Optional[torch.Generator] = None,
+                       graphed: Optional[bool] = None):
         """Rollout through the fused step: the policy's matmuls in PyTorch,
-        the physics in one CUDA kernel per step (its plain version on CPU
-        tensors)."""
+        the physics in one CUDA kernel per step, the whole loop one CUDA
+        graph replay on the card (`graphed=False`: the eager loop); its
+        plain version on CPU tensors. `cap` is a 0-d tensor, so that a new
+        ceiling needs no new capture."""
         from ..ops.cuda.fused_step import build_fused_policy_rollout
 
         if self._fused_rollout is None:
@@ -216,7 +220,8 @@ class PPOLearner:
                 self.env, self.config.num_envs, self.config.rollout_steps,
                 self._policy_fn())
         toh = self._task_oh(es.task_id)          # (B, K); static per rollout
-        es, traj = self._fused_rollout(es, (params, stats, cap, toh), generator)
+        es, traj = self._fused_rollout(es, (params, stats, cap, toh), generator,
+                                       graphed=graphed)
         with torch.no_grad():
             # the terminating step of a blown-up env can carry a non-finite
             # reward; sanitize so one env cannot poison a whole batch
@@ -239,16 +244,18 @@ class PPOLearner:
         return params(self._net_in(obs, stats, task_oh))[2]
 
     def collect(self, ts: TrainState,
-                generator: Optional[torch.Generator] = None
-                ) -> Tuple[TrainState, Transition]:
+                generator: Optional[torch.Generator] = None,
+                graphed: Optional[bool] = None) -> Tuple[TrainState, Transition]:
         """One rollout of `rollout_steps` from the train state's env farm,
         as the train step collects it: the statistics snapshot and the
-        log-std ceiling of the current update. Returns the state with the
-        farm advanced, and the rollout."""
+        log-std ceiling of the current update. On the card the rollout is
+        one CUDA graph replay (`graphed=False`: the eager loop, its
+        reference). Returns the state with the farm advanced, and the
+        rollout."""
         stats = ts.obs_stats if self.config.obs_norm else None
-        es, traj = self._collect_fused(ts.params, stats,
-                                       self.log_std_cap(ts.update_count),
-                                       ts.env_state, generator)
+        cap = torch.tensor(self.log_std_cap(ts.update_count), device=self.env.device)
+        es, traj = self._collect_fused(ts.params, stats, cap, ts.env_state,
+                                       generator, graphed)
         return ts.replace(env_state=es), traj
 
     # -------------------------------------------------------- checkpointing

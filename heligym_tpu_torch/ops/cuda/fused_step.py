@@ -1,36 +1,44 @@
-"""The fused env step: one hand-written CUDA kernel per env transition.
+"""The fused env step: hand-written CUDA kernels for whole env transitions.
 
-Counterpart of the JAX package's `ops/pallas/fused_step.py`. The kernel
-(`csrc/fused_step.cu`) runs one env per thread: Dryden wind RK4, helicopter
-RK4, the task reward (every task of `envs/tasks.py`; a `MixedTask` lane
-evaluates the sub-task its task id names), counters, termination at the
-post-step terrain height (gathered in the kernel from the packed texel
-table), the collect row and the auto-reset select. Each launch finishes its
-own transition, so the JAX path's one-step-late flag pipelining and its XLA
-epilogue are gone, and its outputs equal `HeliEnv.step_with_eta` followed by
-`auto_reset`.
+Counterpart of the JAX package's `ops/pallas/fused_step.py`. The kernels
+(`csrc/fused_step.cu`) run Dryden wind RK4, helicopter RK4, the task reward
+(every task of `envs/tasks.py`; a `MixedTask` env evaluates the sub-task its
+task id names), counters, termination at the post-step terrain height
+(gathered in the kernel from the packed texel table), the collect rows and
+the auto-reset select. Each transition is finished inside its launch, so the
+JAX path's one-step-late flag pipelining and its XLA epilogue are gone, and
+the outputs equal `HeliEnv.step_with_eta` followed by `auto_reset`.
 
-`fused_step` is the wrapper: CUDA tensors launch the kernel (or raise); CPU
-tensors run `fused_step_plain`, the same function written with the port's
-torch modules. Nothing falls back from one to the other.
+Two launch forms share one device step function:
+  * `fused_step`: one transition per launch (the evaluator, and each step of
+    the policy loop);
+  * `fused_rollout`: T transitions in one launch, the carry in registers
+    between them (the env-only rollout, `build_fused_rollout`).
+Both take CUDA tensors and launch (or raise), or CPU tensors and run
+`fused_step_plain`, the same function written with the port's torch modules.
+Nothing falls back from one to the other. The constant and task tables go to
+the kernel by value, in its parameter block.
 
 Row maps (envs contiguous within a row):
   carry (63, B): 0-17 heli (HELI_STATE_FIELDS order) | 18-22 wind |
     23-39 obs | 40-57 dots | 58-60 wind_ned | 61 steps | 62 successed_steps
   init (62, B): rows 0-60 of a fresh episode's carry (the ResetSnapshot) |
     61 task_id (a small integer, exact in f32)
-  collect (39, B): 0 reward | 1 done | 2 truncated | 3 failed |
+  collect (39, B) per step: 0 reward | 1 done | 2 truncated | 3 failed |
     4-20 obs after auto-reset | 21 succ_step (in-tolerance flag) |
     22-38 obs before auto-reset (what the value bootstrap reads)
   act (B, 4); eta (3, B) already scaled by 1/sqrt(dt).
-  tasks (n_tasks, 8): kind (index into TASK_KINDS) | the task's `folded()`
-    targets, zero-padded (a row is two aligned 16-byte loads).
+  tasks (n_tasks, 8), n_tasks <= MAX_TASKS: kind (index into TASK_KINDS) |
+    the task's `folded()` targets, zero-padded.
 
 `build_fused_rollout` drives it with given actions, `build_fused_policy_rollout`
-with a policy in the loop (the RL collection path).
+with a policy in the loop (the RL collection path; on the card the whole
+loop is one CUDA graph, replayed once per rollout).
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import functools
 import math
 from typing import Callable, Optional, Tuple
@@ -58,16 +66,26 @@ ITID, IROWS = 61, 62
 # collect-block rows
 CREW, CDONE, CTRUNC, CFAIL, COBS0, CSUCC, CFINAL0, XROWS = 0, 1, 2, 3, 4, 21, 22, 39
 
-# Bytes one env-step must move: the carry in and out, the action, the noise,
-# two texel rows; the collect block when collected; the init block's state
-# rows only in lanes whose episode ended; its task-id row for a MixedTask.
-BYTES_PER_ENV_STEP = 4 * (2 * CROWS + 4 + 3 + 2 * 3)
+# Bytes an env-step moves besides the carry, the action, the noise and two
+# texel rows: the collect block when collected; the init block's state rows
+# only in lanes whose episode ended; its task-id row for a MixedTask.
 BYTES_COLLECT = 4 * XROWS
 BYTES_RESET = 4 * SROWS
 BYTES_TASK_ID = 4
 
-# Launches of the kernel (not of the plain version) since import.
+# Env steps the kernels ran (not the plain version) since import: a one-step
+# launch adds 1, a T-step launch T, a replay of the policy loop's graph T, a
+# capture of that graph 1 (its warm-up launch).
 launches = 0
+# Host calls that ran the kernels: one-step launches, T-step launches, graph
+# replays, graph captures.
+calls = {"step": 0, "rollout": 0, "replay": 0, "capture": 0}
+
+# Threads per block of every launch (one thread per env), chosen by
+# measurement on the H100 (PERF.md): 32, 64 and 128 run within 5% of each
+# other, 64 the best or within 2% of the best at 4096 envs. Block sizes the
+# kernel takes: 32, 64, 128. Only a measurement sweeping them sets another.
+BLOCK = 64
 
 # The kernel's constant table, one f32 each, in the order of `enum Const` in
 # csrc/fused_step.cu.
@@ -192,7 +210,8 @@ def const_values(env: HeliEnv) -> dict:
 # csrc/fused_step.cu; a task names its kind with `Task.KIND`.
 TASK_KINDS = ("none", "hover", "forward", "turning", "slalom", "landing",
               "oblique")
-TASK_STRIDE = 8                 # kind + up to 5 folded targets + 2 pad (two float4)
+TASK_STRIDE = 8                 # kind + up to 5 folded targets + 2 pad
+MAX_TASKS = 8                   # task-table rows the kernel's parameter block holds
 
 
 def task_table(env: HeliEnv) -> np.ndarray:
@@ -215,12 +234,17 @@ def task_table(env: HeliEnv) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=8)
-def _tables(env: HeliEnv) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(constant table, task table) of `env` on its device."""
+def _tables(env: HeliEnv) -> Tuple[np.ndarray, np.ndarray]:
+    """(constant table (K_COUNT,), task table (n_tasks, TASK_STRIDE)) of
+    `env`, f32 host arrays: the C entry points copy them into the kernel's
+    parameter block, constants first, in `CONST_NAMES` order."""
     vals = const_values(env)
     consts = np.array([vals[n] for n in CONST_NAMES], dtype=np.float32)
-    return (torch.from_numpy(consts).to(env.device),
-            torch.from_numpy(task_table(env)).to(env.device))
+    tasks = np.ascontiguousarray(task_table(env))
+    if tasks.shape[0] > MAX_TASKS:
+        raise ValueError(f"the fused CUDA step takes at most {MAX_TASKS} tasks, "
+                         f"not {tasks.shape[0]}")
+    return consts, tasks
 
 
 def _check_supported(env: HeliEnv) -> None:
@@ -296,31 +320,36 @@ def fused_step_plain(env: HeliEnv, carry, init, act, eta, auto_reset: bool = Tru
     return carry_new, collect
 
 
-# -- the wrapper -----------------------------------------------------------
+
+
+def _plain_rollout(env: HeliEnv, carry, init, actions, eta_seq, auto_reset):
+    """T transitions of the plain version: (carry', collect (T, 39, B))."""
+    xs = []
+    for t in range(eta_seq.shape[0]):
+        act = actions[t] if actions.dim() == 3 else actions
+        carry, x = fused_step_plain(env, carry, init, act, eta_seq[t], auto_reset)
+        xs.append(x)
+    return carry, torch.stack(xs)
+
+
+# -- the wrappers ----------------------------------------------------------
 
 def fused_step(env: HeliEnv, carry, init, act, eta, auto_reset: bool = True,
                carry_out: Optional[torch.Tensor] = None,
                collect_out: Optional[torch.Tensor] = None,
                collect: bool = True):
     """One env transition for every env: (carry, init, act, eta) ->
-    (carry', collect). On CUDA tensors it launches the kernel; on CPU
-    tensors it runs `fused_step_plain`.
+    (carry', collect). On CUDA tensors it launches the one-step kernel; on
+    CPU tensors it runs `fused_step_plain`.
 
     `carry_out` may be `carry` itself (updated in place). With
     `collect=False` the collect block is not written and None is returned
     in its place."""
     global launches
     if carry.device.type == "cpu":
-        new, x = fused_step_plain(env, carry, init, act, eta, auto_reset)
-        if carry_out is not None:
-            carry_out.copy_(new)
-            new = carry_out
-        if collect_out is not None:
-            collect_out.copy_(x)
-            x = collect_out
-        return new, (x if collect else None)
-    if carry.device.type != "cuda":
-        raise ValueError(f"fused_step runs on CUDA or CPU tensors, not {carry.device}")
+        return _outputs(*fused_step_plain(env, carry, init, act, eta, auto_reset),
+                        carry_out, collect_out, collect)
+    _check_device(carry)
     n, dev = carry.shape[1], carry.device
     carry_out = torch.empty_like(carry) if carry_out is None else carry_out
     if not collect:
@@ -330,70 +359,174 @@ def fused_step(env: HeliEnv, carry, init, act, eta, auto_reset: bool = True,
     args = launch_args(env, carry, init, act, eta, auto_reset, carry_out,
                        collect_out)
     with torch.cuda.device(dev):
-        err = kernel_fn()(*args)
-    if err != 0:
-        raise RuntimeError(f"fused_step kernel launch failed: cudaError {err}")
+        _raise_on(kernel_fn()(*args), "fused_step")
     launches += 1
+    calls["step"] += 1
     return carry_out, collect_out
 
 
-def launch_args(env: HeliEnv, carry, init, act, eta, auto_reset, carry_out,
-                collect_out) -> tuple:
-    """The checked arguments of one kernel launch, in the order of the C
-    entry point `heligym_fused_step`."""
+def fused_rollout(env: HeliEnv, carry, init, actions, eta_seq,
+                  auto_reset: bool = True,
+                  carry_out: Optional[torch.Tensor] = None,
+                  collect_out: Optional[torch.Tensor] = None,
+                  collect: bool = True):
+    """T env transitions for every env in one launch: (carry, init,
+    actions, eta_seq) -> (carry', collect (T, 39, B)). `actions` is
+    (T, B, 4), or (B, 4) held for every step; `eta_seq` (T, 3, B) fixes T.
+    On CUDA tensors one launch runs all T steps with the carry in
+    registers; on CPU tensors the plain version runs T times. The outputs
+    equal T `fused_step` calls."""
+    global launches
+    if carry.device.type == "cpu":
+        return _outputs(*_plain_rollout(env, carry, init, actions, eta_seq, auto_reset),
+                        carry_out, collect_out, collect)
+    _check_device(carry)
+    steps, n, dev = eta_seq.shape[0], carry.shape[1], carry.device
+    carry_out = torch.empty_like(carry) if carry_out is None else carry_out
+    if not collect:
+        collect_out = None
+    elif collect_out is None:
+        collect_out = torch.empty((steps, XROWS, n), dtype=torch.float32, device=dev)
+    args = rollout_args(env, carry, init, actions, eta_seq, auto_reset, carry_out,
+                        collect_out)
+    with torch.cuda.device(dev):
+        _raise_on(rollout_kernel_fn()(*args), "fused_rollout")
+    launches += steps
+    calls["rollout"] += 1
+    return carry_out, collect_out
+
+
+def _outputs(new, x, carry_out, collect_out, collect: bool):
+    """The plain version's results, written into the caller's buffers where
+    given."""
+    if carry_out is not None:
+        new = carry_out.copy_(new)
+    if collect_out is not None:
+        x = collect_out.copy_(x)
+    return new, (x if collect else None)
+
+
+def _check_device(t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"the fused step runs on CUDA or CPU tensors, not {t.device}")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _checked(env: HeliEnv, carry, init, act, eta, carry_out, collect_out,
+             steps: Optional[int]) -> tuple:
+    """(constant table, task table) of a launch after checking its tensors:
+    each a contiguous float32 tensor of its shape on the carry's device
+    (`steps` leads the shapes of a T-step launch's act, eta and collect
+    blocks; a (B, 4) act is held for every step)."""
     _check_supported(env)
     n, dev = carry.shape[1], carry.device
+    lead = () if steps is None else (steps,)
     texels = env.terrain.packed
-    consts, tasks = _tables(env)
-    for name, t, shape in (("carry", carry, (CROWS, n)), ("init", init, (IROWS, n)),
-                           ("act", act, (n, 4)), ("eta", eta, (3, n)),
-                           ("terrain.packed", texels, (texels.shape[0], 3)),
-                           ("carry_out", carry_out, (CROWS, n)),
-                           ("collect_out", collect_out, (XROWS, n))):
-        if t is None:            # collect_out, when nothing is collected
+    for name, t, shape in (
+            ("carry", carry, (CROWS, n)), ("init", init, (IROWS, n)),
+            ("act", act, (n, 4) if act.dim() == 2 else lead + (n, 4)),
+            ("eta", eta, lead + (3, n)),
+            ("terrain.packed", texels, (texels.shape[0], 3)),
+            ("carry_out", carry_out, (CROWS, n)),
+            ("collect_out", collect_out, lead + (XROWS, n))):
+        if t is None:
             continue
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() \
                 or tuple(t.shape) != shape:
             raise ValueError(
                 f"{name}: expected a contiguous float32 {shape} tensor on {dev}, "
                 f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    return _tables(env)
+
+
+def launch_args(env: HeliEnv, carry, init, act, eta, auto_reset, carry_out,
+                collect_out) -> tuple:
+    """The checked arguments of one one-step launch, in the order of the C
+    entry point `heligym_fused_step`."""
+    consts, tasks = _checked(env, carry, init, act, eta, carry_out, collect_out,
+                             None)
     map_h, map_w = env.terrain.hmap.shape
     return (carry.data_ptr(), carry_out.data_ptr(), init.data_ptr(),
-            act.data_ptr(), eta.data_ptr(), texels.data_ptr(),
-            consts.data_ptr(), tasks.data_ptr(),
+            act.data_ptr(), eta.data_ptr(), env.terrain.packed.data_ptr(),
+            consts.ctypes.data, tasks.ctypes.data,
             None if collect_out is None else collect_out.data_ptr(),
-            n, int(auto_reset), map_h, map_w, tasks.shape[0],
-            int(isinstance(env.task, MixedTask)),
-            torch.cuda.current_stream(dev).cuda_stream)
+            carry.shape[1], int(auto_reset), map_h, map_w, tasks.shape[0],
+            int(isinstance(env.task, MixedTask)), BLOCK,
+            torch.cuda.current_stream(carry.device).cuda_stream)
+
+
+def rollout_args(env: HeliEnv, carry, init, actions, eta_seq, auto_reset,
+                 carry_out, collect_out) -> tuple:
+    """The checked arguments of one T-step launch, in the order of the C
+    entry point `heligym_fused_rollout`."""
+    steps, n = eta_seq.shape[0], carry.shape[1]
+    if steps < 1:
+        raise ValueError("a rollout needs at least one step")
+    consts, tasks = _checked(env, carry, init, actions, eta_seq, carry_out,
+                             collect_out, steps)
+    map_h, map_w = env.terrain.hmap.shape
+    return (carry.data_ptr(), carry_out.data_ptr(), init.data_ptr(),
+            actions.data_ptr(), 0 if actions.dim() == 2 else 4 * n,
+            eta_seq.data_ptr(), env.terrain.packed.data_ptr(),
+            consts.ctypes.data, tasks.ctypes.data,
+            None if collect_out is None else collect_out.data_ptr(),
+            n, steps, int(auto_reset), map_h, map_w, tasks.shape[0],
+            int(isinstance(env.task, MixedTask)), BLOCK,
+            torch.cuda.current_stream(carry.device).cuda_stream)
 
 
 @functools.lru_cache(maxsize=None)
-def kernel_fn(flags: Optional[Tuple[str, ...]] = None):
-    """The kernel's C entry point, built from csrc/ at first use (with
-    `flags`, by default the port's nvcc flags)."""
-    import ctypes
-
+def _lib(flags: Optional[Tuple[str, ...]] = None):
+    """The kernels' library, built from csrc/ at first use (with `flags`,
+    by default the port's nvcc flags), its layouts checked against this
+    module's."""
     from . import build
     lib = build.load(KERNEL, flags or build.NVCC_FLAGS)
     if (lib.heligym_fused_step_const_count() != len(CONST_NAMES)
             or lib.heligym_fused_step_task_kind_count() != len(TASK_KINDS)
-            or lib.heligym_fused_step_task_stride() != TASK_STRIDE):
-        raise RuntimeError("csrc/fused_step.cu's constant or task-table layout "
-                           "differs from CONST_NAMES / TASK_KINDS")
-    fn = lib.heligym_fused_step
+            or lib.heligym_fused_step_task_stride() != TASK_STRIDE
+            or lib.heligym_fused_step_max_tasks() != MAX_TASKS
+            or lib.heligym_fused_step_param_bytes()
+            != 4 * (len(CONST_NAMES) + MAX_TASKS * TASK_STRIDE)):
+        raise RuntimeError("csrc/fused_step.cu's parameter block differs from "
+                           "CONST_NAMES / TASK_KINDS / MAX_TASKS")
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_fn(flags: Optional[Tuple[str, ...]] = None):
+    """The one-step C entry point `heligym_fused_step`."""
+    import ctypes
+    fn = _lib(flags).heligym_fused_step
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+    fn.argtypes = [vp] * 9 + [ci] * 7 + [vp]
     fn.restype = ci
     return fn
 
 
-# -- the rollout -----------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def rollout_kernel_fn(flags: Optional[Tuple[str, ...]] = None):
+    """The T-step C entry point `heligym_fused_rollout`."""
+    import ctypes
+    fn = _lib(flags).heligym_fused_rollout
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 4 + [ctypes.c_longlong] + [vp] * 5 + [ci] * 8 + [vp]
+    fn.restype = ci
+    return fn
+
+
+# -- the rollouts ----------------------------------------------------------
 
 def build_fused_rollout(env: HeliEnv, num_envs: int, steps: int,
                         collect: Tuple[str, ...] = ("reward", "done"),
                         auto_reset: bool = True, eta_mode: str = "batch"):
     """Fused rollout: `rollout(es, actions, eta_seq=None, generator=None) ->
-    (es', outs)`, one `fused_step` per step.
+    (es', outs)`. On the card one `fused_rollout` launch runs all `steps`;
+    on the CPU the plain version runs step by step.
 
     `actions`: (steps, num_envs, 4), or (num_envs, 4) held constant.
     `eta_mode`: "batch" draws the whole rollout's Dryden noise (steps, 3, B)
@@ -420,12 +553,8 @@ def build_fused_rollout(env: HeliEnv, num_envs: int, steps: int,
         carry, init = pack(es)
         xbuf = (torch.empty((steps, XROWS, num_envs), dtype=torch.float32,
                             device=dev) if collect else None)
-        for t in range(steps):
-            act = actions[t] if actions.dim() == 3 else actions
-            fused_step(env, carry, init, act, eta_seq[t], auto_reset=auto_reset,
-                       carry_out=carry,
-                       collect_out=xbuf[t] if collect else None,
-                       collect=bool(collect))
+        fused_rollout(env, carry, init, actions, eta_seq, auto_reset=auto_reset,
+                      carry_out=carry, collect_out=xbuf, collect=bool(collect))
         outs = {}
         if "reward" in collect:
             outs["reward"] = xbuf[:, CREW]
@@ -441,13 +570,78 @@ def build_fused_rollout(env: HeliEnv, num_envs: int, steps: int,
     return rollout
 
 
+# Policy parameters as the graph holds them: every tensor and module of the
+# caller's tree has a static copy inside the graph, refreshed before each
+# replay; everything else (shapes, Python scalars) keys the capture.
+
+def _static_copy(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, torch.nn.Module):
+        return copy.deepcopy(x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: _static_copy(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    if isinstance(x, (tuple, list)):
+        return type(x)(_static_copy(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _static_copy(v) for k, v in x.items()}
+    return x
+
+
+def _pairs(static, x):
+    """(static tensor, caller's tensor) for every tensor of the tree `x`."""
+    if isinstance(x, torch.Tensor):
+        yield static, x
+    elif isinstance(x, torch.nn.Module):
+        yield from zip((v.detach() for v in static.state_dict(keep_vars=True).values()),
+                       (v.detach() for v in x.state_dict(keep_vars=True).values()))
+    elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+        for f in dataclasses.fields(x):
+            yield from _pairs(getattr(static, f.name), getattr(x, f.name))
+    elif isinstance(x, (tuple, list)):
+        for a, b in zip(static, x):
+            yield from _pairs(a, b)
+    elif isinstance(x, dict):
+        for k in x:
+            yield from _pairs(static[k], x[k])
+
+
+def _signature(x):
+    """What a captured graph depends on besides tensor values."""
+    if isinstance(x, torch.Tensor):
+        return ("tensor", tuple(x.shape), x.dtype, x.device)
+    if isinstance(x, torch.nn.Module):
+        return (type(x), tuple((k, _signature(v)) for k, v in
+                               x.state_dict(keep_vars=True).items()))
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return (type(x), tuple((f.name, _signature(getattr(x, f.name)))
+                               for f in dataclasses.fields(x)))
+    if isinstance(x, (tuple, list)):
+        return (type(x), tuple(_signature(v) for v in x))
+    if isinstance(x, dict):
+        return (dict, tuple((k, _signature(v)) for k, v in sorted(x.items())))
+    return ("value", type(x), x)
+
+
 def build_fused_policy_rollout(env: HeliEnv, num_envs: int, steps: int,
                                policy_fn: Callable, auto_reset: bool = True):
     """Fused rollout driven by a policy in the loop (the RL collection
     path): per step, `policy_fn(policy_params, obs (B, 17), generator) ->
     (actions (B, 4) in [-1, 1], aux dict)` runs in PyTorch, then the physics
     runs in one `fused_step`. Returns `rollout(es, policy_params,
-    generator=None, eta_seq=None) -> (es', traj)`.
+    generator=None, eta_seq=None, graphed=None) -> (es', traj)`.
+
+    On CUDA tensors the whole loop (obs copy, `policy_fn`, action copy, the
+    step kernel) of `steps` steps is captured once into one
+    `torch.cuda.CUDAGraph` and replayed once per call, after the packed
+    carry, init, noise and the tensors of `policy_params` are copied into
+    its static buffers; `generator` is registered with the graph, so a replay
+    draws what the eager loop draws. A new capture is made when the
+    generator or the shapes and Python scalars of `policy_params` change.
+    `graphed=False` runs the eager loop on the card instead (the reference
+    the graph is held against); on CPU tensors the eager loop runs, and
+    `graphed=True` raises. A capture that fails raises.
 
     `traj` holds per transition, leading axis `steps`: "obs" (the obs the
     policy saw: after the previous transition's auto-reset), "action",
@@ -459,36 +653,122 @@ def build_fused_policy_rollout(env: HeliEnv, num_envs: int, steps: int,
     already scaled by 1/sqrt(dt), replaces it (the parity-test seam).
     Nothing here records gradients.
     """
-    def rollout(es: EnvState, policy_params,
-                generator: Optional[torch.Generator] = None, eta_seq=None):
-        dev = es.obs.device
-        if eta_seq is None:
-            eta_seq = torch.randn((steps, 3, num_envs), generator=generator,
-                                  device=dev) * (1.0 / env.dt) ** 0.5
-        eta_seq = eta_seq.contiguous()
-        carry, init = pack(es)
-        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-        xbuf = new(steps, XROWS, num_envs)
-        obs_buf, act_buf = new(steps, num_envs, 17), new(steps, num_envs, 4)
-        aux_seq = {}
-        with torch.no_grad():
-            for t in range(steps):
-                # the carry's obs rows already hold the post-reset obs
-                obs_buf[t].copy_(carry[O0:D0].T)
-                actions, aux = policy_fn(policy_params, obs_buf[t], generator)
-                act_buf[t].copy_(actions)
-                for k, v in aux.items():
-                    aux_seq.setdefault(k, []).append(v)
-                fused_step(env, carry, init, act_buf[t], eta_seq[t],
-                           auto_reset=auto_reset, carry_out=carry,
-                           collect_out=xbuf[t])
-        traj = {"obs": obs_buf, "action": act_buf, "reward": xbuf[:, CREW],
+    captured = {}                       # the current graph and its buffers
+
+    def traj_of(xbuf, obs_buf, act_buf, aux):
+        return {"obs": obs_buf, "action": act_buf, "reward": xbuf[:, CREW],
                 "terminated": xbuf[:, CDONE] != 0,
                 "truncated": xbuf[:, CTRUNC] != 0,
                 "failed": xbuf[:, CFAIL] != 0,
                 "succ_step": xbuf[:, CSUCC] != 0,
-                "final_obs": xbuf[:, CFINAL0:XROWS].permute(0, 2, 1),
-                **{k: torch.stack(v) for k, v in aux_seq.items()}}
-        return unpack(es, carry), traj
+                "final_obs": xbuf[:, CFINAL0:XROWS].permute(0, 2, 1), **aux}
+
+    def loop(carry, init, eta_seq, policy_params, generator, xbuf, obs_buf,
+             act_buf, launch):
+        """The loop body of every path; `launch(t)` runs step t's physics."""
+        aux_seq = {}
+        for t in range(steps):
+            # the carry's obs rows already hold the post-reset obs
+            obs_buf[t].copy_(carry[O0:D0].T)
+            actions, aux = policy_fn(policy_params, obs_buf[t], generator)
+            act_buf[t].copy_(actions)
+            for k, v in aux.items():
+                aux_seq.setdefault(k, []).append(v)
+            launch(t)
+        return {k: torch.stack(v) for k, v in aux_seq.items()}
+
+    def buffers(dev):
+        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+        return new(steps, XROWS, num_envs), new(steps, num_envs, 17), \
+            new(steps, num_envs, 4)
+
+    def eager(es, policy_params, generator, eta_seq):
+        carry, init = pack(es)
+        xbuf, obs_buf, act_buf = buffers(carry.device)
+        launch = lambda t: fused_step(env, carry, init, act_buf[t], eta_seq[t],
+                                      auto_reset=auto_reset, carry_out=carry,
+                                      collect_out=xbuf[t])
+        aux = loop(carry, init, eta_seq, policy_params, generator, xbuf, obs_buf,
+                   act_buf, launch)
+        return unpack(es, carry), traj_of(xbuf, obs_buf, act_buf, aux)
+
+    def capture(dev, policy_params, generator):
+        """Static buffers, a warm-up step on a side stream (scratch noise
+        generator, scratch state: cuBLAS and the allocator settle, and the
+        step kernel runs once, counted in `launches`), then the capture.
+        The launch arguments are checked here, once."""
+        global launches
+        g = {"carry": torch.zeros((CROWS, num_envs), device=dev),
+             "init": torch.zeros((IROWS, num_envs), device=dev),
+             "eta": torch.zeros((steps, 3, num_envs), device=dev),
+             "params": _static_copy(policy_params)}
+        g["xbuf"], g["obs"], g["act"] = buffers(dev)
+        fn = kernel_fn()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            obs = g["carry"][O0:D0].T.contiguous()
+            actions, _ = policy_fn(g["params"], obs, torch.Generator(device=dev))
+            scratch = g["carry"].clone()
+            _raise_on(fn(*launch_args(env, scratch, g["init"],
+                                      actions.contiguous(), g["eta"][0],
+                                      auto_reset, scratch, None)), "fused_step")
+        launches += 1
+        calls["capture"] += 1
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        with torch.cuda.graph(graph):
+            args = [launch_args(env, g["carry"], g["init"], g["act"][t],
+                                g["eta"][t], auto_reset, g["carry"], g["xbuf"][t])
+                    for t in range(steps)]
+            g["aux"] = loop(g["carry"], g["init"], g["eta"], g["params"], generator,
+                            g["xbuf"], g["obs"], g["act"],
+                            lambda t: _raise_on(fn(*args[t]), "fused_step"))
+        g["graph"] = graph
+        return g
+
+    def graphed_run(es, policy_params, generator, eta_seq):
+        global launches
+        dev = es.obs.device
+        key = (_signature(policy_params), dev)
+        g = captured.get("g")
+        if g is None or g["key"] != key or g["generator"] is not generator:
+            captured.clear()            # free the old graph's pool first
+            g = capture(dev, policy_params, generator)
+            g["key"], g["generator"] = key, generator
+            captured["g"] = g
+        carry, init = pack(es)
+        dst, src = zip(*_pairs((g["carry"], g["init"], g["eta"], g["params"]),
+                               (carry, init, eta_seq, policy_params)))
+        torch._foreach_copy_(list(dst), list(src))
+        g["graph"].replay()
+        launches += steps
+        calls["replay"] += 1
+        # the caller owns what it gets: the next replay rewrites the buffers
+        aux = {k: v.clone() for k, v in g["aux"].items()}
+        traj = traj_of(g["xbuf"].clone(), g["obs"].clone(), g["act"].clone(), aux)
+        return unpack(es, g["carry"].clone()), traj
+
+    def rollout(es: EnvState, policy_params,
+                generator: Optional[torch.Generator] = None, eta_seq=None,
+                graphed: Optional[bool] = None):
+        dev = es.obs.device
+        on_card = dev.type == "cuda"
+        if graphed is None:
+            graphed = on_card
+        if graphed and not on_card:
+            raise ValueError("the graphed policy rollout runs on CUDA tensors only; "
+                             f"the state lies on {dev}")
+        if eta_seq is None:
+            eta_seq = torch.randn((steps, 3, num_envs), generator=generator,
+                                  device=dev) * (1.0 / env.dt) ** 0.5
+        eta_seq = eta_seq.contiguous()
+        with torch.no_grad():
+            if graphed:
+                return graphed_run(es, policy_params, generator, eta_seq)
+            return eager(es, policy_params, generator, eta_seq)
 
     return rollout

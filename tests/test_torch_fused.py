@@ -23,6 +23,8 @@ from heligym_tpu_torch.convert import env_state_from_numpy
 from heligym_tpu_torch.envs import HeliEnv, HoverTask, Task, VectorHeliEnv
 from heligym_tpu_torch.ops.cuda import fused_step as fs
 
+from test_torch_tasks import compiled
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B = 128
 
@@ -48,10 +50,16 @@ def jax_state_to_numpy(es):
 
 @pytest.fixture(scope="module")
 def jstep(hover_env):
-    """JAX's batched step + auto_reset, compiled once for the module (the
-    compile costs ~25 s on the CPU)."""
-    return jax.jit(lambda es, a, e: jauto_reset(
-        *jax.vmap(hover_env.step_with_eta)(es, a, e.T)))
+    """JAX's batched step + auto_reset, compiled once for the module at its
+    first call (`test_torch_tasks.compiled`)."""
+    fn = lambda es, a, e: jauto_reset(*jax.vmap(hover_env.step_with_eta)(es, a, e.T))
+    cache = {}
+
+    def step(es, a, e):
+        if "step" not in cache:
+            cache["step"] = compiled(fn, es, a, e)
+        return cache["step"](es, a, e)
+    return step
 
 
 def _run_both(env, hover_env, hover_trim, jstep, steps, dive, seed):
@@ -190,3 +198,86 @@ def test_kernel_covers_hover_only(env):
     with pytest.raises(NotImplementedError):
         fs._check_supported(env.replace(
             params=dataclasses.replace(env.params, WN=wn)))
+
+
+def test_param_block_layout(env):
+    """The host tables that the C entry points copy into the kernel's
+    parameter block: the constant table in CONST_NAMES order (the `enum
+    Const` of the source, checked above), the task table in TASK_KINDS
+    order with at most MAX_TASKS rows, and the block's two fields as the
+    source declares them, inside the 4 KB of kernel parameters."""
+    from heligym_tpu_torch.envs import MixedTask
+    with open(os.path.join(REPO, "heligym_tpu_torch", "csrc", "fused_step.cu")) as f:
+        src = f.read()
+    consts, tasks = fs._tables(env)
+    vals = fs.const_values(env)
+    assert consts.dtype == np.float32 and consts.shape == (len(fs.CONST_NAMES),)
+    np.testing.assert_array_equal(
+        consts, np.asarray([vals[n] for n in fs.CONST_NAMES], np.float32))
+    np.testing.assert_array_equal(tasks, fs.task_table(env))
+    assert tasks.flags.c_contiguous and tasks.dtype == np.float32
+    assert int(re.search(r"kMaxTasks = (\d+);", src).group(1)) == fs.MAX_TASKS
+    assert int(re.search(r"kTaskStride = (\d+);", src).group(1)) == fs.TASK_STRIDE
+    body = re.search(r"struct Params \{(.*?)\};", src, re.S).group(1)
+    assert re.findall(r"float (\w+)\[([^\]]+)\];", body) == [
+        ("c", "K_COUNT"), ("tasks", "kMaxTasks * kTaskStride")]
+    assert 4 * (len(fs.CONST_NAMES) + fs.MAX_TASKS * fs.TASK_STRIDE) + 128 <= 4096
+    too_many = env.replace(task=MixedTask(tasks=(HoverTask(),) * (fs.MAX_TASKS + 1)))
+    with pytest.raises(ValueError):
+        fs._tables(too_many)
+    # the block size every launch takes is one the kernel's launch accepts
+    sizes = [int(v) for v in re.findall(r"block != (\d+)", src)]
+    assert sizes == [32, 64, 128] and fs.BLOCK in sizes
+
+
+def test_launch_checks(env):
+    """What a launch checks once, before its arguments reach the kernel:
+    every block's shape (T leading the act, eta and collect blocks of a
+    T-step launch; a (B, 4) act held for every step), dtype and
+    contiguity."""
+    n, steps = 4, 3
+    z = lambda *shape: torch.zeros(shape)
+    carry, init = z(fs.CROWS, n), z(fs.IROWS, n)
+
+    def check(act, eta, x, steps=None):
+        return fs._checked(env, carry, init, act, eta, carry, x, steps)
+    consts, tasks = check(z(n, 4), z(3, n), z(fs.XROWS, n))
+    assert consts.shape == (len(fs.CONST_NAMES),) and tasks.shape == (1, fs.TASK_STRIDE)
+    check(z(n, 4), z(steps, 3, n), z(steps, fs.XROWS, n), steps)
+    check(z(steps, n, 4), z(steps, 3, n), None, steps)
+    for bad in ((z(steps, n, 4), z(3, n), None, None),
+                (z(n, 4), z(steps, 3, n), z(fs.XROWS, n), steps),
+                (z(steps + 1, n, 4), z(steps, 3, n), None, steps),
+                (z(4, n).T, z(3, n), None, None),
+                (z(n, 4).double(), z(3, n), None, None)):
+        with pytest.raises(ValueError):
+            check(*bad)
+
+
+def test_fused_rollout_on_cpu_is_the_plain_loop(env):
+    """`fused_rollout` on CPU tensors equals T `fused_step_plain` calls, with
+    per-step and with held actions; `build_fused_rollout` on the CPU runs
+    that loop."""
+    tr = env.trim_result()
+    n, steps = 16, 6
+    es, _ = VectorHeliEnv(env, n).reset_from_trim(tr)
+    rng = np.random.default_rng(6)
+    act = torch.from_numpy((tr.action.numpy() + 0.05 * rng.standard_normal(
+        (steps, n, 4))).astype(np.float32))
+    eta = torch.from_numpy((rng.standard_normal((steps, 3, n)) * 50 ** 0.5)
+                           .astype(np.float32))
+    carry, init = fs.pack(es)
+    rewards = []
+    with torch.no_grad():
+        for actions in (act, act[0]):
+            c, xs = carry.clone(), []
+            for t in range(steps):
+                c, x = fs.fused_step_plain(
+                    env, c, init, actions[t] if actions.dim() == 3 else actions, eta[t])
+                xs.append(x)
+            c2, x2 = fs.fused_rollout(env, carry.clone(), init, actions, eta)
+            assert torch.equal(c, c2) and torch.equal(torch.stack(xs), x2)
+            rewards.append(x2[:, fs.CREW])
+        out = fs.build_fused_rollout(env, n, steps, collect=("reward",),
+                                     eta_mode="inject")(es, act, eta)[1]["reward"]
+    assert torch.equal(out, rewards[0])

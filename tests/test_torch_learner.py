@@ -39,7 +39,7 @@ from heligym_tpu_torch.ops.cuda import fused_step as fs
 from heligym_tpu_torch.utils.checkpoint import (TreedefError, load_policy_npz,
                                                 parse_treedef)
 
-from test_torch_tasks import jax_state_to_numpy, make_task
+from test_torch_tasks import compiled, jax_state_to_numpy, make_task
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = os.path.join(REPO, "examples")
@@ -250,8 +250,9 @@ def test_fused_policy_rollout_matches_jax(learners, hover_trim):
         mean, _, value = jl.network.apply(p, jl._net_in(obs, None, jtoh))
         return jnp.clip(jl.act_bias + mean, -1.0, 1.0), {"value": value}
 
-    jroll = jax.jit(jbuild_policy_rollout(jenv, n, steps, jpolicy_fn))
-    es_j, jtraj = jroll(es, jparams, jax.random.PRNGKey(0))
+    key = jax.random.PRNGKey(0)
+    jroll = compiled(jbuild_policy_rollout(jenv, n, steps, jpolicy_fn), es, jparams, key)
+    es_j, jtraj = jroll(es, jparams, key)
 
     # the noise JAX drew from the per-env keys (fused_step.py draw_eta)
     def draw(k):
@@ -319,6 +320,18 @@ def test_collect_through_learner(learners):
         v_next = tl._value_of(ts.params, None, tr.obs[1:], tl._task_oh(
             ts.env_state.task_id))
     torch.testing.assert_close(tr.v_boot[:-1], v_next, atol=1e-6, rtol=0)
+
+
+def test_graphed_rollout_refuses_cpu(learners):
+    """The graphed collector is a CUDA graph: asked for on CPU tensors it
+    raises, it never falls back to the eager loop."""
+    _, tl = learners
+    ts = tl.init(torch.Generator().manual_seed(0), task_ids=np.arange(128) % 4)
+    with pytest.raises(ValueError):
+        tl.collect(ts, torch.Generator().manual_seed(0), graphed=True)
+    roll = fs.build_fused_policy_rollout(tl.env, 128, 2, lambda p, o, g: (o[:, :4], {}))
+    with pytest.raises(ValueError):
+        roll(ts.env_state, None, graphed=True)
 
 
 # -- the evaluator ---------------------------------------------------------------

@@ -30,6 +30,13 @@ from heligym_tpu_torch.ops.state import HeliState
 SINGLE = ("hover", "forward", "turning", "slalom", "landing", "landing_touch",
           "oblique")
 
+def compiled(fn, *args):
+    """`fn` jitted and compiled once for `args`' shapes, ahead of its first
+    call, with XLA's default options. (A plain `jax.jit` compiles again
+    when its later calls take committed arrays where the first took
+    uncommitted ones.)"""
+    return jax.jit(fn).lower(*args).compile()
+
 
 def make_tasks(mod, alt):
     """The seven single tasks of module `mod` (the JAX package's tasks or the
@@ -191,8 +198,8 @@ def jax_mixed7_run(hover_env, hover_trim, start_alt):
     task_ids = np.arange(n) % 7
     es = moving_state(jenv, hover_trim, n, task_ids, seed=0)
     act, eta = rollout_inputs(hover_trim.action, steps, n, 0, jenv.dt)
-    jstep = jax.jit(lambda es, a, e: jauto_reset(
-        *jax.vmap(jenv.step_with_eta)(es, a, e.T)))
+    jstep = compiled(lambda es, a, e: jauto_reset(
+        *jax.vmap(jenv.step_with_eta)(es, a, e.T)), es, act[0], eta[0])
     ref = {"reward": [], "done": [], "truncated": [], "failed": [], "obs": []}
     e = es
     for t in range(steps):
@@ -251,9 +258,11 @@ def test_fused_plain_matches_jax_fused_mixed(hover_env, hover_trim, start_alt):
     es = moving_state(jenv, hover_trim, n, task_ids, seed=3)
     act, eta = rollout_inputs(hover_trim.action, steps, n, 3, jenv.dt)
     # unroll=1: one copy of the interpreted kernel to compile, not four
-    jroll = jax.jit(jbuild_fused_rollout(jenv, n, steps, collect=("reward", "done"),
-                                         eta_mode="inject", unroll=1))
-    es_j, jouts = jroll(es, jnp.asarray(act), jnp.asarray(eta))
+    act_j, eta_j = jnp.asarray(act), jnp.asarray(eta)
+    jroll = compiled(jbuild_fused_rollout(jenv, n, steps, collect=("reward", "done"),
+                                          eta_mode="inject", unroll=1),
+                     es, act_j, eta_j)
+    es_j, jouts = jroll(es, act_j, eta_j)
 
     env = HeliEnv.build("aw109", task=make_task(tasks, "mixed2", start_alt),
                         device="cpu")
