@@ -8,36 +8,307 @@
 //
 // What bounds them on the H100: bytes. Each output element reads one index
 // (4 B) and one value (4 B) and writes one value (4 B), with no arithmetic:
-// 12 B per element, 12.6 MB at (1024, 1024), 3.76 us at 3.35 TB/s. At the
-// probe sizes x (at most 4 MB) sits in the 50 MB L2 after its first touch,
-// so the random reads cost L2 sectors, not device-memory rows.
-// What the design does about it: one thread per output element, threads
-// along L, so the index loads and the output stores of a warp are 128
-// contiguous bytes (coalesced). The value reads are scattered by nature: along
-// axis 0 a warp reads 32 different rows at neighbouring columns (32 sectors
-// in the worst case), along axis 1 it reads within one row (as few as 4
-// sectors, as many as 32).
+// 12 B per element, 12.6 MB at (1024, 1024), 3.76 us at 3.35 TB/s.
+//
+// gather_axis1: one thread per output element, threads along L, so the index
+// loads and the output stores of a warp are 128 contiguous bytes; the value
+// reads stay within one row (4 to 32 sectors a warp).
+//
+// gather_axis0: read one element per thread straight from x, a warp's 32
+// lanes would read 32 random rows at neighbouring columns, 32 sectors for
+// 128 useful bytes, and the kernel would be bound by L2 sector traffic. So a
+// block owns a column tile of W = 32 columns and stages the whole tile
+// x[0:S, c0:c0+32] in shared memory, row stride 32 floats: element (j, lane)
+// lies in bank `lane` for every j, and a warp whose lanes are the tile's 32
+// columns reads tile[idx[s, c0+lane]][lane] free of bank conflicts for any
+// indices. Its output rows' indices, idx[s0:s1, c0:c0+32], are staged beside
+// the tile in groups of up to 256 rows, so that no register array and no
+// unrolled loop has to keep loads in flight (the time of a launch grew with
+// such a body, by microseconds at the small probe sizes: PERF.md). Tile and
+// indices arrive by TMA (2-D boxes of at most 256 rows x 32 columns over
+// tensor maps of x and idx, completion on one mbarrier) where the shape
+// allows it: row pitches that are a multiple of 16 bytes (L % 4 == 0) and
+// 16-byte aligned x and idx. Otherwise every thread copies its share with
+// 4-byte cp.async (a warp copies one 128-byte row segment). Then each thread
+// walks the group's elements, a warp one row at a time: a shared-memory read
+// of the index, one of the tile, and a store that is coalesced across the
+// warp.
+// A column tile's rows are split over `splits` blocks so that ~128 blocks,
+// one per SM, fill the card; each stages the tile itself. (A thread-block
+// cluster sharing one TMA multicast of the tile measured slower: PERF.md.)
+// S beyond what a block may hold (1536 rows = 192 KB beside the indices) is
+// staged in chunks, one pass each; in a pass an output element takes its
+// value only if its index falls inside the chunk, so it is written once.
+// The plan (W, the chunking, splits) is `plan_axis0` below, computed by the
+// C entry point; the card tests check that it covers every output by
+// launching into an output filled with NaN.
 //
 // An index must lie in [0, n). The wrapper checks that on the host when
 // asked; the kernels clamp, so a bad index never reads outside x.
+#include <cuda.h>           // CUtensorMap and its enums (a header: no libcuda link)
+#include <cudaTypedefs.h>   // PFN_cuTensorMapEncodeTiled
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;        // gather_axis1
+
+constexpr int kW = 32;               // columns of a tile: a warp's lanes
+constexpr int kRowBytes = kW * 4;
+constexpr int kBoxRows = 256;        // TMA's largest box dimension
+constexpr int kGroupRows = kBoxRows; // output rows whose indices are staged at once
+constexpr int kChunkRows = 6 * kBoxRows;   // 192 KB of x, 32 KB of indices:
+constexpr int kBarBytes = 16;              // of the 227 KB a block may use
+constexpr int kMaxSmem = (kChunkRows + kGroupRows) * kRowBytes + kBarBytes;
+constexpr int kMinRows = 64;         // output rows a block gets at least
+constexpr int kTargetBlocks = 128;   // blocks to aim for: ~one per SM of the 132
+constexpr int kTileThreads = 512;    // threads of a block (256 and 1024: slower)
 
 __device__ __forceinline__ int clamp_index(int j, int n) {
   return j < 0 ? 0 : (j >= n ? n - 1 : j);
 }
 
-__global__ void __launch_bounds__(kThreads)
-gather_axis0_kernel(const float* __restrict__ x, const int* __restrict__ idx,
-                    float* __restrict__ out, int S, int L) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)S * L) return;
-  const int l = (int)(e % L);
-  out[e] = x[(long long)clamp_index(idx[e], S) * L + l];
+// ---- gather_axis0 ------------------------------------------------------------
+
+struct Plan {
+  int tiles;        // column tiles, ceil(L / 32)
+  int box_rows;     // rows of one TMA box of x
+  int chunk_rows;   // rows of x staged per pass
+  int chunks;       // passes over x's rows
+  int splits;       // blocks per column tile (gridDim.x)
+  int group_rows;   // output rows whose indices are staged at once
+  int smem_bytes;   // dynamic shared memory per block
+  int tma;          // 1: TMA loads, 0: cp.async loads
+};
+
+inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+Plan plan_axis0(int S, int L, bool tma) {
+  Plan p;
+  p.tiles = cdiv(L, kW);
+  if (S <= kChunkRows) {
+    const int boxes = cdiv(S, kBoxRows);
+    p.box_rows = cdiv(S, boxes);
+    p.chunk_rows = boxes * p.box_rows;
+    p.chunks = 1;
+  } else {
+    p.box_rows = kBoxRows;
+    p.chunk_rows = kChunkRows;
+    p.chunks = cdiv(S, kChunkRows);
+  }
+  int splits = cdiv(kTargetBlocks, p.tiles);
+  if (splits > S / kMinRows) splits = S / kMinRows;
+  p.splits = splits < 1 ? 1 : splits;
+  p.group_rows = S < kGroupRows ? S : kGroupRows;
+  p.smem_bytes = (p.chunk_rows + p.group_rows) * kRowBytes + kBarBytes;
+  p.tma = tma ? 1 : 0;
+  return p;
 }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n" : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Waits for the barrier's phase of parity `parity` to complete. A copy that
+// has not landed after a second is a fault: the kernel traps (the launch
+// then fails) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  uint64_t t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  while (!mbar_try_wait(bar, parity)) {
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    if (t - t0 > 1000000000ull) __trap();
+  }
+}
+
+// One 2-D TMA box (columns from c, rows from r) of `map` into shared memory
+// at `dst`, completing on the barrier at `bar`.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, int c,
+                                        int r, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r), "r"(bar)
+      : "memory");
+}
+
+// rows x 32 four-byte elements of a row-major (., L) array, from row r0 and
+// column c0, into shared memory at `dst` (row stride 32), by every thread
+// with cp.async; columns beyond L are filled with zeros.
+__device__ __forceinline__ void cp_async_rows(uint32_t dst, const void* src, int r0,
+                                              int rows, int c0, int L) {
+  for (int e = threadIdx.x; e < rows * kW; e += kTileThreads) {
+    const int c = c0 + (e & (kW - 1));
+    const char* from = static_cast<const char*>(src) +
+                       4 * ((long long)(r0 + (e >> 5)) * L + (c < L ? c : L - 1));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(dst + 4u * e), "l"(from), "r"(c < L ? 4 : 0) : "memory");
+  }
+}
+
+template <bool kTma>
+__global__ void __launch_bounds__(kTileThreads, 1)
+gather_axis0_tile_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap imap,
+                         const float* __restrict__ x, const int* __restrict__ idx,
+                         float* __restrict__ out, int S, int L, Plan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const float* tile = reinterpret_cast<const float*>(smem);
+  const int* ids = reinterpret_cast<const int*>(smem + p.chunk_rows * kRowBytes);
+  const uint32_t tile_a = smem_u32(smem);
+  const uint32_t ids_a = tile_a + p.chunk_rows * kRowBytes;
+  const uint32_t bar_a = ids_a + p.group_rows * kRowBytes;
+  const int s0 = (int)((long long)blockIdx.x * S / p.splits);
+  const int s1 = (int)((long long)(blockIdx.x + 1) * S / p.splits);
+  const int lane = threadIdx.x & (kW - 1);
+  if (kTma && threadIdx.x == 0) {
+    asm volatile("prefetch.tensormap [%0];\n"
+                 :: "l"(reinterpret_cast<uint64_t>(&xmap)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n"
+                 :: "l"(reinterpret_cast<uint64_t>(&imap)) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar_a) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();   // the barrier is set up before any copy may signal it
+
+  uint32_t phase = 0;
+  for (int ct = blockIdx.y; ct < p.tiles; ct += gridDim.y) {
+    const int c0 = ct * kW;
+    const bool col_ok = c0 + lane < L;
+    for (int g0 = s0; g0 < s1; g0 += p.group_rows) {
+      const int n = min(p.group_rows, s1 - g0) * kW;   // elements of the group
+      for (int k = 0; k < p.chunks; ++k, ++phase) {
+        const int r0 = k * p.chunk_rows;
+        const int rows = min(p.chunk_rows, S - r0);
+        // x's chunk is staged unless it is the one already there (one chunk,
+        // one column tile); the group's indices with the first chunk
+        const bool load_x = p.chunks > 1 || g0 == s0;
+        const bool load_ids = k == 0;
+        if (phase > 0) __syncthreads();   // every thread is done with what it replaces
+        if (kTma) {
+          if (threadIdx.x == 0) {
+            const int boxes = load_x ? (rows + p.box_rows - 1) / p.box_rows : 0;
+            const uint32_t box_bytes = (uint32_t)p.box_rows * kRowBytes;
+            // TMA counts a box's out-of-bounds rows, filled with zeros, too
+            const uint32_t bytes = boxes * box_bytes +
+                                   (load_ids ? (uint32_t)p.group_rows * kRowBytes : 0u);
+            asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                         :: "r"(bar_a), "r"(bytes) : "memory");
+            for (int b = 0; b < boxes; ++b)
+              tma_box(tile_a + b * box_bytes, &xmap, c0, r0 + b * p.box_rows, bar_a);
+            if (load_ids) tma_box(ids_a, &imap, c0, g0, bar_a);
+          }
+          mbar_wait(bar_a, phase & 1u);
+        } else {
+          if (load_x) cp_async_rows(tile_a, x, r0, rows, c0, L);
+          if (load_ids) cp_async_rows(ids_a, idx, g0, n / kW, c0, L);
+          asm volatile("cp.async.commit_group;\n"
+                       "cp.async.wait_all;\n" ::: "memory");
+          __syncthreads();
+        }
+        // a warp takes one output row at a time, lane = column
+#pragma unroll 4
+        for (int e = threadIdx.x; e < n; e += kTileThreads) {
+          const int j = clamp_index(ids[e], S) - r0;
+          if (col_ok && (unsigned)j < (unsigned)rows)
+            __stcs(out + (long long)(g0 + (e >> 5)) * L + c0 + lane, tile[j * kW + lane]);
+        }
+      }
+    }
+  }
+}
+
+PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+  }
+  return fn;
+}
+
+// TMA takes a row-major (S, L) array of 4-byte elements when its rows start
+// on 16-byte boundaries.
+bool tma_ok(const void* a, int L) {
+  return L % 4 == 0 && (reinterpret_cast<uintptr_t>(a) & 15u) == 0;
+}
+
+// A tensor map of a row-major (S, L) array of 4-byte elements, in boxes of
+// 32 columns x box_rows rows.
+CUresult encode(CUtensorMap* map, CUtensorMapDataType type, const void* a, int S,
+                int L, int box_rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 fn = encode_fn();
+  if (fn == nullptr) return CUDA_ERROR_NOT_SUPPORTED;
+  const cuuint64_t dims[2] = {(cuuint64_t)L, (cuuint64_t)S};
+  const cuuint64_t strides[1] = {(cuuint64_t)L * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)kW, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(a), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Lets the kernel take up to kMaxSmem of dynamic shared memory (once).
+template <bool kTma>
+cudaError_t allow_smem() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(gather_axis0_tile_kernel<kTma>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kMaxSmem);
+  done = err == cudaSuccess;
+  return err;
+}
+
+template <bool kTma>
+cudaError_t launch_axis0(const CUtensorMap& xmap, const CUtensorMap& imap, const float* x,
+                         const int* idx, float* out, int S, int L, const Plan& p,
+                         cudaStream_t stream) {
+  cudaError_t err = allow_smem<kTma>();
+  if (err != cudaSuccess) return err;
+  // the column tiles beyond 65535 are looped in the kernel
+  const dim3 grid(p.splits, p.tiles < 65535 ? p.tiles : 65535);
+  gather_axis0_tile_kernel<kTma><<<grid, kTileThreads, p.smem_bytes, stream>>>(
+      xmap, imap, x, idx, out, S, L, p);
+  return cudaGetLastError();
+}
+
+int gather_axis0(const float* x, const int* idx, float* out, int S, int L,
+                 cudaStream_t stream) {
+  if ((long long)S * L == 0) return 0;
+  const bool tma = tma_ok(x, L) && tma_ok(idx, L);
+  const Plan p = plan_axis0(S, L, tma);
+  CUtensorMap xmap = {}, imap = {};
+  if (!tma) return (int)launch_axis0<false>(xmap, imap, x, idx, out, S, L, p, stream);
+  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, S, L, p.box_rows) ||
+      encode(&imap, CU_TENSOR_MAP_DATA_TYPE_INT32, idx, S, L, p.group_rows))
+    return (int)cudaErrorInvalidValue;   // a map TMA refuses
+  return (int)launch_axis0<true>(xmap, imap, x, idx, out, S, L, p, stream);
+}
+
+// ---- gather_axis1 ------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads)
 gather_axis1_kernel(const float* __restrict__ x, const int* __restrict__ idx,
@@ -64,7 +335,7 @@ int launch(Kernel kernel, const float* x, const int* idx, float* out, int S,
 // launch. `out` must not alias `x`.
 extern "C" int heligym_gather_axis0(const float* x, const int* idx, float* out,
                                     int S, int L, void* stream) {
-  return launch(gather_axis0_kernel, x, idx, out, S, L, stream);
+  return gather_axis0(x, idx, out, S, L, (cudaStream_t)stream);
 }
 
 extern "C" int heligym_gather_axis1(const float* x, const int* idx, float* out,

@@ -14,9 +14,14 @@ kernel of `csrc/gather.cu` (or raise); CPU tensors run the plain version,
 must lie in [0, n) — numpy's negative wrap-around is not offered;
 `check=True` verifies that on the host (one device sync) and raises
 IndexError, `check=False` skips it and the kernel clamps.
+
+`gather_axis0`'s kernel stages a column tile of x in shared memory (by TMA
+where the shape allows it, else by cp.async) and gathers from there; the C
+entry point plans its launch (`csrc/gather.cu::plan_axis0`).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -35,13 +40,9 @@ def gather_plain(x: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
     return torch.take_along_dim(x, idx.to(torch.int64), dim=axis)
 
 
-@functools.lru_cache(maxsize=None)
-def kernel_fns():
-    """The two C entry points, built from csrc/ at first use."""
-    import ctypes
-
-    from . import build
-    lib = build.load(KERNEL)
+def bind(lib):
+    """The two C entry points of a built gather library (this one's, or an
+    earlier source's: `tools/torch_exp_gather.py --parent`)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fns = {}
     for axis in (0, 1):
@@ -50,6 +51,13 @@ def kernel_fns():
         fn.restype = ci
         fns[axis] = fn
     return fns
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_fns():
+    """The two C entry points, built from csrc/ at first use."""
+    from . import build
+    return bind(build.load(KERNEL))
 
 
 def _gather(x: torch.Tensor, idx: torch.Tensor, axis: int, check: bool):

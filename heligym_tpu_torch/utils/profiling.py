@@ -56,10 +56,16 @@ def kernel_times_ms(fn: Callable, n: int, warmup: int = 3) -> Dict[str, Dict[str
     return out
 
 
-def device_time_ms(fn: Callable, n: int, match: Optional[str] = None) -> Optional[float]:
+def device_time_ms(fn: Callable, n: int, match: Optional[str] = None,
+                   tries: int = 3) -> Optional[float]:
     """Device milliseconds per call of `fn`: the sum over its kernels, or
-    over those whose name contains `match`. None where the profiler shows
-    no such device time (time with `event_time_ms` then)."""
-    picked = [row["ms"] for name, row in kernel_times_ms(fn, n).items()
-              if match is None or match in name]
-    return sum(picked) if picked else None
+    over those whose name contains `match`. A profile that shows no such
+    device time is taken again, up to `tries` profiles in all (the profiler
+    now and then records no device activity); None if none shows it (time
+    with `event_time_ms` then)."""
+    for _ in range(tries):
+        picked = [row["ms"] for name, row in kernel_times_ms(fn, n).items()
+                  if match is None or match in name]
+        if picked:
+            return sum(picked)
+    return None

@@ -109,29 +109,54 @@ def test_kernel_matches_plain_every_task(name):
         "the dive never terminated"
 
 
+PROBE = [(0, (8, 128)), (0, (64, 128)), (0, (64, 1024)), (0, (256, 1024)),
+         (0, (1024, 1024)), (1, (8, 128)), (1, (8, 1024)), (1, (64, 1024)),
+         (1, (1024, 1024)), (0, (5, 7)), (1, (5, 7))]
+# gather_axis0's edges: a ragged last column tile with and without TMA
+# (L % 4 != 0 loads by cp.async), x beyond one shared-memory tile (chunks),
+# one row, a block with two groups of indices
+EDGES = [(0, (1000, 33)), (0, (64, 1000)), (0, (256, 30)), (0, (4096, 64)),
+         (0, (2500, 100)), (0, (1, 1024)), (0, (300, 9000))]
+PATTERNS = [(axis, shape, pattern) for axis, shape in
+            ((0, (1024, 1024)), (0, (4096, 64)), (0, (1000, 33)), (1, (1024, 1024)))
+            for pattern in ("zeros", "last", "out_of_range")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("axis,shape", [
-    (0, (8, 128)), (0, (64, 128)), (0, (64, 1024)), (0, (256, 1024)),
-    (0, (1024, 1024)), (1, (8, 128)), (1, (8, 1024)), (1, (64, 1024)),
-    (1, (1024, 1024)), (0, (5, 7)), (1, (5, 7))])
-def test_gather_kernels_match_plain(axis, shape):
-    """Each gather kernel equals its plain version exactly at the probe
-    sizes (and at a ragged one), and refuses what it does not take."""
+@pytest.mark.parametrize("axis,shape,pattern",
+                         [(a, s, "random") for a, s in PROBE + EDGES] + PATTERNS)
+def test_gather_kernels_match_plain(axis, shape, pattern):
+    """Each gather kernel equals its plain version bit for bit at the probe
+    sizes, at every edge of gather_axis0's tiling and with the indices all
+    0, all n - 1, or out of range (`check=False`: the kernel clamps them),
+    writes every output (a launch into an output filled with NaN), and
+    refuses what it does not take."""
     _need_card()
     rng = np.random.default_rng(0)
+    n = shape[axis]
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
-    idx = torch.from_numpy(rng.integers(0, shape[axis], size=shape)
-                           .astype(np.int32)).cuda()
+    idx_np = {"random": lambda: rng.integers(0, n, size=shape),
+              "zeros": lambda: np.zeros(shape),
+              "last": lambda: np.full(shape, n - 1),
+              "out_of_range": lambda: rng.integers(-n - 3, 2 * n + 3, size=shape),
+              }[pattern]().astype(np.int32)
+    idx = torch.from_numpy(idx_np).cuda()
     fn = gather.gather_axis0 if axis == 0 else gather.gather_axis1
     before = gather.launches[f"gather_axis{axis}"]
-    out = fn(x, idx)
+    out = fn(x, idx, check=pattern != "out_of_range")
     torch.cuda.synchronize()
     assert gather.launches[f"gather_axis{axis}"] == before + 1
-    assert torch.equal(out, gather.gather_plain(x, idx, axis))
+    want = gather.gather_plain(x, idx.clamp(0, n - 1), axis)
+    assert torch.equal(out, want)
+    # the launch plan covers every output: none keeps the NaN it started with
+    filled = torch.full_like(x, float("nan"))
+    assert gather.kernel_fns()[axis](x.data_ptr(), idx.data_ptr(), filled.data_ptr(),
+                                     *shape, torch.cuda.current_stream().cuda_stream) == 0
+    assert torch.equal(filled, want)
     with pytest.raises(IndexError):
-        fn(x, idx + shape[axis])
+        fn(x, idx.clamp(0, n - 1) + n)
     with pytest.raises(ValueError):
-        fn(x.T, idx.T.contiguous().T)
+        fn(x.T, idx.clamp(0, n - 1).T.contiguous().T)
 
 
 def _bits_equal(a, b):
