@@ -21,7 +21,9 @@ failure exits non-zero:
      over the same inputs timed beside it and held equal to it;
   4. the gather probe (tools/torch_exp_gather.py): each kernel against
      np.take_along_axis and, bit for bit, its plain version at every probe
-     size and at (1024, 1022) (gather_axis0's cp.async load), with its
+     size, at (1024, 1022) (L % 4 != 0: gather_axis0's cp.async load,
+     gather_axis1's scalar path) and, for gather_axis1, at (8, 32768) (rows
+     over many column tiles), with its
      device time hot (inputs in L2), cold (after a 128 MB write) and cold
      with a clean L2 (a 128 MB read after the write) beside torch.gather's
      and the bound;

@@ -1,4 +1,4 @@
-// gather.cu — per-element gathers along axis 0 and axis 1, for Hopper (sm_90a).
+// gather.cu — gathers along axis 0 and axis 1, for Hopper (sm_90a).
 //
 // Replaces the two TPU probe kernels of tools/exp_gather.py:
 //   gather_axis0_kernel (:18): out[s, l] = x[idx[s, l], l]
@@ -9,10 +9,6 @@
 // What bounds them on the H100: bytes. Each output element reads one index
 // (4 B) and one value (4 B) and writes one value (4 B), with no arithmetic:
 // 12 B per element, 12.6 MB at (1024, 1024), 3.76 us at 3.35 TB/s.
-//
-// gather_axis1: one thread per output element, threads along L, so the index
-// loads and the output stores of a warp are 128 contiguous bytes; the value
-// reads stay within one row (4 to 32 sectors a warp).
 //
 // gather_axis0: read one element per thread straight from x, a warp's 32
 // lanes would read 32 random rows at neighbouring columns, 32 sectors for
@@ -39,20 +35,37 @@
 // S beyond what a block may hold (1536 rows = 192 KB beside the indices) is
 // staged in chunks, one pass each; in a pass an output element takes its
 // value only if its index falls inside the chunk, so it is written once.
-// The plan (W, the chunking, splits) is `plan_axis0` below, computed by the
-// C entry point; the card tests check that it covers every output by
-// launching into an output filled with NaN.
+// The plan (W, the chunking, splits) is `plan_axis0` below. Its mbarrier
+// wait traps after a second, so a fault fails the launch instead of hanging.
 //
-// An index must lie in [0, n). The wrapper checks that on the host when
+// gather_axis1: a block owns a tile of whole rows (or of one row's columns
+// where L > 1024) and each of its 256 threads gathers 4 elements with every
+// load in flight at once: where L % 4 == 0 and the arrays are 16-byte
+// aligned, 4 neighbouring indices in one 16-byte load, the 4 values from the
+// row (independent loads) and one 16-byte store; otherwise 4 elements 256
+// apart, each load and store coalesced across the warp. A 1024-row array is
+// 1024 blocks, all resident at once (8 a SM), so the launch is one wave of
+// two dependent trips to memory (index, then value), not the four waves of a
+// thread per element. The value loads go through the SM's L1 (ld.global.nc),
+// which can serve a block's repeated touches of its 4 KB row; the stores are
+// marked streaming (st.global.cs), which measured faster cold. Staging rows in shared memory by
+// bulk async copies through a ring of stages was built and measured slower
+// at every shape (PERF.md): the wider threads are what win. The plan (rows
+// and columns of a tile, the grid) is `plan_axis1` below; small arrays take
+// fewer rows or columns to a tile, so that their loads spread over the SMs.
+//
+// Each plan is computed by its C entry point; the card tests check that it
+// covers every output by launching into an output filled with NaN. An index
+// must lie in [0, n). The wrapper checks that on the host when
 // asked; the kernels clamp, so a bad index never reads outside x.
 #include <cuda.h>           // CUtensorMap and its enums (a header: no libcuda link)
 #include <cudaTypedefs.h>   // PFN_cuTensorMapEncodeTiled
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include <algorithm>
 
-constexpr int kThreads = 256;        // gather_axis1
+namespace {
 
 constexpr int kW = 32;               // columns of a tile: a warp's lanes
 constexpr int kRowBytes = kW * 4;
@@ -249,11 +262,11 @@ PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
   return fn;
 }
 
+bool aligned16(const void* a) { return (reinterpret_cast<uintptr_t>(a) & 15u) == 0; }
+
 // TMA takes a row-major (S, L) array of 4-byte elements when its rows start
 // on 16-byte boundaries.
-bool tma_ok(const void* a, int L) {
-  return L % 4 == 0 && (reinterpret_cast<uintptr_t>(a) & 15u) == 0;
-}
+bool tma_ok(const void* a, int L) { return L % 4 == 0 && aligned16(a); }
 
 // A tensor map of a row-major (S, L) array of 4-byte elements, in boxes of
 // 32 columns x box_rows rows.
@@ -310,22 +323,89 @@ int gather_axis0(const float* x, const int* idx, float* out, int S, int L,
 
 // ---- gather_axis1 ------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-gather_axis1_kernel(const float* __restrict__ x, const int* __restrict__ idx,
-                    float* __restrict__ out, int S, int L) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)S * L) return;
-  const long long s = e / L;
-  out[e] = x[s * L + clamp_index(idx[e], L)];
+// A block's tile of the output: `rows` whole rows (`cols` = L < kTile), or
+// `cols` columns of one row (long rows, or a small array spread over more
+// blocks); the grid is (row tiles, column tiles).
+struct Plan1 {
+  int rows, cols;
+  int grid_x, grid_y;
+};
+
+constexpr int kThreads1 = 256;             // threads of a block
+constexpr int kTile = 4 * kThreads1;       // elements of a block: 4 a thread
+constexpr int kSms = 132;                  // the H100 SXM's SMs
+constexpr int kMinCols = 128;              // a tile spans at least one warp's quads
+
+// Returns false where the column tiles do not fit in the grid's y.
+bool plan_axis1(int S, int L, Plan1* p) {
+  p->cols = std::min(L, kTile);
+  // small arrays spread their loads over the SMs: no more rows to a tile
+  // than leave two tiles per SM, and narrower tiles while the grid has fewer
+  // blocks than half the SMs (the thresholds measured best: PERF.md)
+  p->rows = std::max(1, std::min(kTile / p->cols, cdiv(S, 2 * kSms)));
+  while ((long long)cdiv(S, p->rows) * cdiv(L, p->cols) < kSms / 2 &&
+         p->cols / 2 >= kMinCols)
+    p->cols = (p->cols / 2 + 3) / 4 * 4;   // a multiple of 4 keeps quads in a tile
+  p->grid_x = cdiv(S, p->rows);
+  p->grid_y = cdiv(L, p->cols);
+  return p->grid_y <= 65535;
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, const float* x, const int* idx, float* out, int S,
-           int L, void* stream) {
-  const long long total = (long long)S * L;
-  if (total == 0) return 0;
-  const int blocks = (int)((total + kThreads - 1) / kThreads);
-  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(x, idx, out, S, L);
+// out[s, l] = x[s, clamp(idx[s, l])] for the block's tile, 4 elements a
+// thread with every load in flight at once: kVec (L % 4 == 0, 16-byte
+// aligned arrays) takes 4 neighbouring elements, one 16-byte index load, 4
+// loads from the row and one 16-byte store; otherwise the thread takes 4
+// elements kThreads1 apart, each load and store coalesced across the warp.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads1)
+gather_axis1_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+                    float* __restrict__ out, int S, int L, Plan1 p) {
+  const long long r0 = (long long)blockIdx.x * p.rows;
+  const int c0 = blockIdx.y * p.cols;
+  if (kVec) {
+    const int e = 4 * threadIdx.x;   // the quad's first element in the tile
+    const int r = p.rows == 1 ? 0 : e / p.cols;
+    const int c = c0 + e - r * p.cols;
+    const long long s = r0 + r;
+    if (r < p.rows && s < S && c < min(L, c0 + p.cols)) {
+      const float* row = x + s * L;
+      const int4 j = __ldg(reinterpret_cast<const int4*>(idx + s * L + c));
+      float4 v;
+      v.x = __ldg(row + clamp_index(j.x, L));
+      v.y = __ldg(row + clamp_index(j.y, L));
+      v.z = __ldg(row + clamp_index(j.z, L));
+      v.w = __ldg(row + clamp_index(j.w, L));
+      __stcs(reinterpret_cast<float4*>(out + s * L + c), v);
+    }
+  } else {
+    long long row[4];   // offset of the element's row in x; -1: no element
+    int c[4], j[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = threadIdx.x + k * kThreads1;
+      const int r = p.rows == 1 ? 0 : e / p.cols;
+      const long long s = r0 + r;
+      c[k] = c0 + e - r * p.cols;
+      row[k] = r < p.rows && s < S && c[k] < min(L, c0 + p.cols) ? s * L : -1;
+      j[k] = row[k] >= 0 ? __ldg(idx + row[k] + c[k]) : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (row[k] >= 0)
+        __stcs(out + row[k] + c[k], __ldg(x + row[k] + clamp_index(j[k], L)));
+  }
+}
+
+int gather_axis1(const float* x, const int* idx, float* out, int S, int L,
+                 cudaStream_t stream) {
+  if ((long long)S * L == 0) return 0;
+  Plan1 p;
+  if (!plan_axis1(S, L, &p)) return (int)cudaErrorInvalidValue;
+  const dim3 grid(p.grid_x, p.grid_y);
+  if (L % 4 == 0 && aligned16(x) && aligned16(idx) && aligned16(out))
+    gather_axis1_kernel<true><<<grid, kThreads1, 0, stream>>>(x, idx, out, S, L, p);
+  else
+    gather_axis1_kernel<false><<<grid, kThreads1, 0, stream>>>(x, idx, out, S, L, p);
   return (int)cudaGetLastError();
 }
 
@@ -340,5 +420,5 @@ extern "C" int heligym_gather_axis0(const float* x, const int* idx, float* out,
 
 extern "C" int heligym_gather_axis1(const float* x, const int* idx, float* out,
                                     int S, int L, void* stream) {
-  return launch(gather_axis1_kernel, x, idx, out, S, L, stream);
+  return gather_axis1(x, idx, out, S, L, (cudaStream_t)stream);
 }

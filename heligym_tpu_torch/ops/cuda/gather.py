@@ -16,8 +16,11 @@ must lie in [0, n) — numpy's negative wrap-around is not offered;
 IndexError, `check=False` skips it and the kernel clamps.
 
 `gather_axis0`'s kernel stages a column tile of x in shared memory (by TMA
-where the shape allows it, else by cp.async) and gathers from there; the C
-entry point plans its launch (`csrc/gather.cu::plan_axis0`).
+where the shape allows it, else by cp.async) and gathers from there;
+`gather_axis1`'s gathers 4 elements a thread straight from x, every load in
+flight at once (16-byte index loads and stores where L % 4 == 0 and the
+arrays are aligned). Each C entry point plans its own launch
+(`csrc/gather.cu::plan_axis0`, `plan_axis1`).
 """
 from __future__ import annotations
 

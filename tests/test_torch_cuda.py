@@ -120,22 +120,39 @@ EDGES = [(0, (1000, 33)), (0, (64, 1000)), (0, (256, 30)), (0, (4096, 64)),
 PATTERNS = [(axis, shape, pattern) for axis, shape in
             ((0, (1024, 1024)), (0, (4096, 64)), (0, (1000, 33)), (1, (1024, 1024)))
             for pattern in ("zeros", "last", "out_of_range")]
+# gather_axis1's edges: L % 4 != 0 (the scalar path), rows over many column
+# tiles, one row, many short rows to a tile, S not a multiple of the rows of
+# a tile; on both axes, x one float into its buffer (gather_axis0's cp.async
+# load and gather_axis1's scalar path at an aligned L)
+EDGES_AXIS1 = [(1, (1024, 1022), "random"), (1, (1000, 33), "random"),
+               (1, (3, 100000), "random"), (1, (1, 1024), "random"),
+               (1, (4096, 64), "random"), (1, (2500, 100), "random"),
+               (1, (1024, 1024), "misaligned"), (0, (1024, 1024), "misaligned"),
+               (1, (3, 100000), "out_of_range")] + [
+    (1, (1000, 33), pattern) for pattern in ("zeros", "last", "out_of_range")]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("axis,shape,pattern",
-                         [(a, s, "random") for a, s in PROBE + EDGES] + PATTERNS)
+                         [(a, s, "random") for a, s in PROBE + EDGES] + PATTERNS
+                         + EDGES_AXIS1)
 def test_gather_kernels_match_plain(axis, shape, pattern):
     """Each gather kernel equals its plain version bit for bit at the probe
-    sizes, at every edge of gather_axis0's tiling and with the indices all
-    0, all n - 1, or out of range (`check=False`: the kernel clamps them),
-    writes every output (a launch into an output filled with NaN), and
-    refuses what it does not take."""
+    sizes, at every edge of each kernel's plan, from an x that is not
+    16-byte aligned and with the indices all 0, all n - 1, or out of range
+    (`check=False`: the kernel clamps them), writes every output (a launch
+    into an output filled with NaN), and refuses what it does not take."""
     _need_card()
     rng = np.random.default_rng(0)
     n = shape[axis]
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+    if pattern == "misaligned":   # a view one float into its buffer
+        buf = torch.empty(x.numel() + 1, device=x.device)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(shape)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 4
     idx_np = {"random": lambda: rng.integers(0, n, size=shape),
+              "misaligned": lambda: rng.integers(0, n, size=shape),
               "zeros": lambda: np.zeros(shape),
               "last": lambda: np.full(shape, n - 1),
               "out_of_range": lambda: rng.integers(-n - 3, 2 * n + 3, size=shape),

@@ -22,8 +22,10 @@ ways:
         evicts them; "clean" repeats it with a read of another 128 MB after
         the write, so that the gather moves only its own bytes.
 
-Besides the probe sizes it runs gather_axis0 at (1024, 1022), where
-L % 4 != 0 sends the tile through the cp.async load instead of TMA.
+Besides the probe sizes it runs both kernels at (1024, 1022), where
+L % 4 != 0 sends gather_axis0's tile through cp.async instead of TMA and
+gather_axis1 through its scalar path (one element per load instead of 4),
+and gather_axis1 at (8, 32768), whose long rows are split over column tiles.
 `--parent PATH` (repeatable) builds another gather.cu (an earlier one, or
 a variant of this one) through `build.load(src=...)` and times its kernels
 in the same run, each held bit for bit against this kernel. Prints one line
@@ -49,7 +51,8 @@ from heligym_tpu_torch.utils.profiling import (device_time_ms, event_time_ms,  #
 
 AXIS0_SIZES = [(8, 128), (64, 128), (64, 1024), (256, 1024), (1024, 1024)]
 AXIS1_SIZES = [(8, 128), (8, 1024), (64, 1024), (1024, 1024)]
-CP_ASYNC_SIZES = [(1024, 1022)]    # axis 0 with L % 4 != 0: the cp.async load
+UNALIGNED_SIZES = [(1024, 1022)]   # L % 4 != 0: cp.async (axis 0), scalar (axis 1)
+LONG_ROW_SIZES = [(8, 32768)]      # axis 1: rows over many column tiles
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FLUSH_BYTES = 128 << 20            # written before each cold launch (L2: 50 MB)
 HOT_LAUNCHES, COLD_LAUNCHES = 200, 50
@@ -149,8 +152,9 @@ def trial(axis, S, L, flush, variants=None, device="cuda"):
            "bound_us": bound_us}
     row["cold_bound_share"] = bound_us / row["cold_us"]
     row["cold_clean_bound_share"] = bound_us / row["cold_clean_us"]
-    if axis == 0:   # the load csrc/gather.cu takes for this shape
-        row["load"] = "tma" if L % 4 == 0 else "cp.async"
+    # the path csrc/gather.cu takes for this shape (aligned inputs)
+    row["load"] = {(0, True): "tma", (0, False): "cp.async",
+                   (1, True): "vec4", (1, False): "scalar"}[axis, L % 4 == 0]
     row["variants"] = {}
     for label, fns in (variants or {}).items():
         launch = raw_launcher(fns, axis, x, idx)
@@ -164,8 +168,7 @@ def trial(axis, S, L, flush, variants=None, device="cuda"):
 
 def print_row(r):
     axis = r["name"][-1]
-    where = f" [{r['load']}]" if "load" in r else ""
-    print(f"axis{axis} S={r['S']} L={r['L']}{where}: correct={r['correct']} "
+    print(f"axis{axis} S={r['S']} L={r['L']} [{r['load']}]: correct={r['correct']} "
           f"equal to plain={r['equal_plain']} covers={r['covers']}  hot {r['us']:.3f} us  cold "
           f"{r['cold_us']:.3f} us ({100 * r['cold_bound_share']:.1f}% of the bound "
           f"{r['bound_us']:.3f} us)  cold, clean L2 {r['cold_clean_us']:.3f} us "
@@ -184,7 +187,8 @@ def run_probe(device="cuda", variants=None):
     `variants`: {label: bound C entry points} timed beside each trial."""
     flush = Flush(device)
     rows = []
-    for axis, sizes in ((0, AXIS0_SIZES), (1, AXIS1_SIZES), (0, CP_ASYNC_SIZES)):
+    for axis, sizes in ((0, AXIS0_SIZES), (1, AXIS1_SIZES), (0, UNALIGNED_SIZES),
+                        (1, UNALIGNED_SIZES + LONG_ROW_SIZES)):
         for S, L in sizes:
             r = trial(axis, S, L, flush, variants, device)
             rows.append(r)
