@@ -18,7 +18,9 @@ failure exits non-zero:
      one warm-up chunk and 2 timed chunks of 500 steps of
      `build_fused_rollout(eta_mode="batch")` with the trim action, one
      T-step launch per chunk; a loop of one `fused_step` launch per step
-     over the same inputs timed beside it and held equal to it;
+     over the same inputs timed beside it and held equal to it; then
+     `tools/torch_bench.py` at its defaults (4096 envs, 5 chunks of 500
+     steps), its JSON line printed after "[bench]";
   4. the gather probe (tools/torch_exp_gather.py): each kernel against
      np.take_along_axis and, bit for bit, its plain version at every probe
      size, at (1024, 1022) (L % 4 != 0: gather_axis0's cp.async load,
@@ -31,20 +33,36 @@ failure exits non-zero:
      one warm-up and 5 rollouts of 64 steps through `PPOLearner.collect`,
      each one CUDA graph replay; the eager loop timed beside it and held
      equal to it bit for bit;
+  5b. the train step: stage 1 of hover4k (examples/hover4k_training_
+     metrics.json: 4096 envs x 64 steps, 4 epochs x 8 minibatches, lr 1e-4
+     annealed over 200 updates, critic warm-up 30, frozen obs stats),
+     resumed from examples/hover4k_policy.npz (params, Adam, obs stats and
+     its 4096-env farm) with the schedules reset: 1 warm-up and 3 timed
+     `train_step`s split into collect (the graph replay) and update (GAE +
+     epochs) by CUDA events, one profiled step for the device-busy share;
+     the critic must move and the actor (warm-up) must not; one update
+     repeated on the CPU from the same rollout, parameters and shuffles,
+     held to the card's; save -> restore bit-equal; then `train()` for 2
+     updates from the checkpoint, as a user resumes a run;
   6. the evaluator: `multi_seed_evaluate` of the committed multitask4 and
      hover4k policies beside their committed scores;
   7. numbers: the step kernel's device time per step, one-step and T-step
      launches, beside their bounds and the plain version; the block sizes
-     at 4096 and 16384 envs; one JSON line describing each kernel.
-Before each path (3, 4, 5, 6) every kernel's counts are set to 0, and read
-just after; a path whose kernel never ran fails the script. The step
+     at 4096 and 16384 envs, each timed from a fresh carry that every
+     launch reads and none overwrites, its outputs held bit for bit against
+     the kept block's; one JSON line describing each kernel.
+Before each path (3, the bench, 4, 5, 5b, 6) every kernel's counts are set
+to 0, and read just after; a path whose kernel never ran fails the script. The step
 kernel's count is of env steps it ran: a T-step launch or a graph replay of
 T steps counts T, a graph capture 1 (its warm-up launch); the profiled
 collector rollout must show exactly T step-kernel executions. The last
 line is {"ok": true, "device": {...}}; the line
 starting "[report]" holds every measured number as JSON.
 """
+import contextlib
+import copy
 import importlib.util
+import io
 import json
 import os
 import subprocess
@@ -58,6 +76,8 @@ CHUNK = 500
 CHUNKS = 2
 ROLLOUT_STEPS = 64
 ROLLOUTS = 5
+TRAIN_STEPS = 3                # timed train steps, after one warm-up
+TRAIN_TOL = 1e-4               # card vs CPU update, relative to each tensor's scale
 SWEEP_ENVS = (4096, 16384)
 SWEEP_BLOCKS = (32, 64, 128)
 SWEEP_STEPS = 200
@@ -121,6 +141,13 @@ def main():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
+    def load_tool(name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(here, "tools", name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
     try:
         from heligym_tpu_torch.envs import (ForwardFlightTask, HeliEnv, HoverTask,
                                             LandingTask, MixedTask,
@@ -131,10 +158,9 @@ def main():
         from heligym_tpu_torch.ops.cuda import build, fused_step as fs, gather
         from heligym_tpu_torch.utils.profiling import (device_time_ms, event_time_ms,
                                                        kernel_times_ms)
-        spec = importlib.util.spec_from_file_location(
-            "torch_exp_gather", os.path.join(here, "tools", "torch_exp_gather.py"))
-        probe = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(probe)
+        from heligym_tpu_torch.learner.ppo import TrainState
+        probe = load_tool("torch_exp_gather")
+        bench = load_tool("torch_bench")
     except (ImportError, OSError) as e:
         fail(f"the port is not beside this script ({e}); run it from a checkout")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -388,6 +414,20 @@ def main():
           f"fraction {hover_ended_frac:.5f}")
     hover_env, hover_es, hover_actions = env, es_h, actions
 
+    # the torch counterpart of bench.py, at its defaults, in this process
+    zero_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench.main([])
+    bench_line = out.getvalue().strip().splitlines()[-1]
+    bench_launches, bench_calls = fs.launches, dict(fs.calls)
+    report["torch_bench"] = {**json.loads(bench_line), "launches": bench_launches,
+                             "calls": bench_calls}
+    print(f"[bench] {bench_line}")
+    if bench_launches != 500 * 6 or bench_calls["rollout"] != 6:
+        fail(f"torch_bench: the kernel ran {bench_launches} steps in {bench_calls}, "
+             f"expected 3000 steps in 6 T-step launches")
+
     # ---- 4. the gather probe ---------------------------------------------------
     zero_counts()
     rows = probe.run_probe()
@@ -407,7 +447,8 @@ def main():
     learner = PPOLearner(env, PPOConfig(num_envs=N_ENVS, rollout_steps=ROLLOUT_STEPS))
     ckpt = os.path.join(here, "examples", "multitask4_policy.npz")
     task_ids = np.arange(N_ENVS) % n_tasks
-    ts0 = learner.restore(ckpt, learner.init(task_ids=task_ids))
+    ts0 = learner.restore(ckpt).replace(
+        env_state=learner.init(task_ids=task_ids).env_state)
     # the graph replay against the eager loop, bit for bit, over two rollouts
     outs = {}
     for graphed in (True, False):
@@ -510,6 +551,176 @@ def main():
     coll_launches = report["collector"]["graphed"]["launches"]
     mixed_env, mixed_ts = env, ts
 
+    # ---- 5b. the train step ----------------------------------------------------
+    train_cfg = PPOConfig(num_envs=N_ENVS, rollout_steps=ROLLOUT_STEPS, minibatches=8,
+                          epochs=4, lr=1e-4, ent_coef=1e-3, gamma=0.99,
+                          anneal_updates=200, shuffle="perm", freeze_obs_stats=True,
+                          success_bonus=1.0, fail_penalty=5.0, vf_clip_eps=0.0,
+                          target_kl=0.0, critic_warmup=30)
+    env, _ = build_env("hover", None, "sea_alt=start")
+    trainer = PPOLearner(env, train_cfg)
+    hover4k = os.path.join(here, "examples", "hover4k_policy.npz")
+    zero_counts()
+    # a same-size resume of the whole TrainState, the schedules reset
+    ts = trainer.restore(hover4k, trainer.init(torch.Generator().manual_seed(5))
+                         ).replace(update_count=0)
+    if ts.env_state.steps.shape != (N_ENVS,) or int(ts.opt_state.count) == 0:
+        fail("train: the checkpoint's farm or Adam state did not come back")
+    actor = lambda net: [p for n, _, p in net.flax_leaves() if n in net.actor_flax_names()]
+    critic = lambda net: [p for n, _, p in net.flax_leaves()
+                          if n not in net.actor_flax_names()]
+    actor0 = [p.detach().clone() for p in actor(ts.params)]
+    critic0 = [p.detach().clone() for p in critic(ts.params)]
+    rows = []
+    for i in range(1 + TRAIN_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        ev[0].record()
+        ts, traj = trainer.collect(ts, ts.generator)   # train_step: collect + update
+        ev[1].record()
+        ts, metrics = trainer.update(ts, traj)
+        ev[2].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        if i:
+            rows.append({"wall_ms": wall * 1e3, "collect_ms": ev[0].elapsed_time(ev[1]),
+                         "update_ms": ev[1].elapsed_time(ev[2])})
+    with torch.no_grad():
+        gae_ms = event_time_ms(lambda: trainer._gae(traj), 10, warmup=2)
+
+    def profiled_step():
+        nonlocal ts
+        ts, _ = trainer.train_step(ts)
+    times = kernel_times_ms(profiled_step, 1, warmup=1)   # two more train steps
+    device_ms = sum(r["ms"] for r in times.values())
+    step_kernel_ms = sum(r["ms"] for k, r in times.items() if "fused_step_kernel" in k)
+    mean = lambda k: sum(r[k] for r in rows) / len(rows)
+    train = {"steps": rows, "wall_ms": mean("wall_ms"), "collect_ms": mean("collect_ms"),
+             "update_ms": mean("update_ms"), "gae_ms": gae_ms,
+             "minibatch_ms": (mean("update_ms") - gae_ms) / (train_cfg.epochs
+                                                            * train_cfg.minibatches),
+             "device_ms_per_step": device_ms, "step_kernel_ms_per_step": step_kernel_ms,
+             "device_launches_per_step": sum(r["count"] for r in times.values()),
+             "device_busy_frac": device_ms / mean("wall_ms"),
+             "metrics": {k: float(v) for k, v in metrics.items()}, "card": report["card"]}
+    for k, v in train["metrics"].items():
+        if not np.isfinite(v):
+            fail(f"train: metric {k} is {v}")
+    for p in trainer.param_list(ts.params):
+        if not bool(torch.isfinite(p).all()):
+            fail("train: a non-finite parameter")
+    if train["metrics"]["lr"] <= 0 or all(torch.equal(a, b) for a, b in
+                                          zip(critic0, critic(ts.params))):
+        fail("train: the critic did not move while lr > 0")
+    if ts.update_count > train_cfg.critic_warmup or not all(
+            torch.equal(a, b) for a, b in zip(actor0, actor(ts.params))):
+        fail("train: the actor moved during the critic warm-up")
+    # one collection per step (1 warm-up, the timed ones, the profile's
+    # warm-up and profiled step) and one capture (the restored generator)
+    n_collect = 1 + TRAIN_STEPS + 2
+    train_launches, train_calls = fs.launches, dict(fs.calls)
+    train["launches"], train["calls"] = train_launches, train_calls
+    if train_launches == 0 or train_calls["replay"] != n_collect or \
+            train_launches != ROLLOUT_STEPS * n_collect + train_calls["capture"]:
+        fail(f"train: the step kernel ran {train_launches} steps in {train_calls}, "
+             f"expected {n_collect} replays of {ROLLOUT_STEPS}")
+    print(f"[train] hover4k stage 1 at {N_ENVS} envs x {ROLLOUT_STEPS} steps, "
+          f"{train_cfg.epochs} epochs x {train_cfg.minibatches} minibatches, on "
+          f"{report['card']}")
+    print(f"[train] {train['wall_ms'] * 1e3:.1f} us per train step (host clock, "
+          f"{TRAIN_STEPS} steps): collect {train['collect_ms'] * 1e3:.1f} us (graph "
+          f"replay), update {train['update_ms'] * 1e3:.1f} us (GAE "
+          f"{gae_ms * 1e3:.1f} us + {train_cfg.epochs * train_cfg.minibatches} "
+          f"minibatch steps of {train['minibatch_ms'] * 1e3:.1f} us) by CUDA events")
+    print(f"[train] device busy {train['device_busy_frac']:.3f}: "
+          f"{device_ms * 1e3:.1f} us of device time in "
+          f"{train['device_launches_per_step']:.0f} launches per step (step kernel "
+          f"{step_kernel_ms * 1e3:.1f} us); {train_launches} step-kernel steps in "
+          f"{train_calls}")
+    print(f"[train] approx_kl {train['metrics']['approx_kl']:.6g}, loss "
+          f"{train['metrics']['loss']:.6g}, v_loss {train['metrics']['v_loss']:.6g}, "
+          f"lr {train['metrics']['lr']:.6g}, reward_mean "
+          f"{train['metrics']['reward_mean']:.6g}")
+
+    # one update on the card and the same update on the CPU: the same
+    # rollout, parameters, Adam state and shuffles
+    ts, traj = trainer.collect(ts, ts.generator)
+    n = ROLLOUT_STEPS * N_ENVS
+    perms = [torch.randperm(n, generator=torch.Generator().manual_seed(e))
+             for e in range(train_cfg.epochs)]
+    cpu_env, _ = build_env("hover", None, "sea_alt=start", device="cpu")
+    cpu_trainer = PPOLearner(cpu_env, train_cfg)
+    to_cpu = lambda x: x.detach().cpu()
+    ts_cpu = TrainState(params=copy.deepcopy(ts.params).cpu(), env_state=None,
+                        update_count=ts.update_count,
+                        obs_stats=type(ts.obs_stats)(*(to_cpu(getattr(ts.obs_stats, f))
+                                                       for f in ("mean", "var", "count"))),
+                        opt_state=type(ts.opt_state)(to_cpu(ts.opt_state.count),
+                                                     [to_cpu(m) for m in ts.opt_state.mu],
+                                                     [to_cpu(v) for v in ts.opt_state.nu]))
+    traj_cpu = traj.map(to_cpu)
+    ts, m_card = trainer.update(ts, traj, idx=[p.to(dev) for p in perms])
+    t0 = time.perf_counter()
+    ts_cpu, m_cpu = cpu_trainer.update(ts_cpu, traj_cpu, idx=perms)
+    cpu_s = time.perf_counter() - t0
+
+    def rel_err(a, b):
+        """max |a - b| over the tensor's largest magnitude."""
+        a, b = a.detach().cpu(), b.detach()
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+    errs = {"params": max(rel_err(a, b) for a, b in zip(
+                trainer.param_list(ts.params), cpu_trainer.param_list(ts_cpu.params))),
+            "mu": max(rel_err(a, b) for a, b in zip(ts.opt_state.mu, ts_cpu.opt_state.mu)),
+            "nu": max(rel_err(a, b) for a, b in zip(ts.opt_state.nu, ts_cpu.opt_state.nu))}
+    count_equal = int(ts.opt_state.count) == int(ts_cpu.opt_state.count)
+    train["one_update_check"] = {"rel_err": errs, "tol": TRAIN_TOL, "cpu_s": cpu_s,
+                                 "count_equal": count_equal,
+                                 "card_metrics": {k: float(v) for k, v in m_card.items()},
+                                 "cpu_metrics": {k: float(v) for k, v in m_cpu.items()}}
+    print(f"[check] train: one update ({train_cfg.epochs} epochs) on the card vs the "
+          f"CPU ({cpu_s:.1f} s), same rollout and shuffles: max error relative to each "
+          f"tensor's scale: params {errs['params']:.3e}, mu {errs['mu']:.3e}, nu "
+          f"{errs['nu']:.3e} (tolerance {TRAIN_TOL:g}); Adam counts equal {count_equal}; "
+          f"loss {float(m_card['loss']):.6g} / {float(m_cpu['loss']):.6g}")
+    if not count_equal or max(errs.values()) > TRAIN_TOL:
+        fail("train: the card's update differs from the CPU's")
+
+    # save -> restore
+    ckpt_dir = os.path.join(here, "build", "chip_smoke")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, "train.npz")
+    trainer.save(path, ts)
+    back = trainer.restore(path, ts)
+    same = (all(torch.equal(a, b) for a, b in zip(trainer.param_list(ts.params),
+                                                  trainer.param_list(back.params)))
+            and torch.equal(ts.opt_state.count, back.opt_state.count)
+            and all(torch.equal(a, b) for a, b in zip(ts.opt_state.mu + ts.opt_state.nu,
+                                                      back.opt_state.mu + back.opt_state.nu))
+            and all(torch.equal(getattr(ts.obs_stats, f), getattr(back.obs_stats, f))
+                    for f in ("mean", "var", "count"))
+            and torch.equal(fs.pack(ts.env_state)[0], fs.pack(back.env_state)[0])
+            and torch.equal(ts.generator.get_state(), back.generator.get_state())
+            and back.update_count == ts.update_count)
+    print(f"[check] train: save -> restore: parameters, Adam state, obs stats, farm "
+          f"and generator bit-equal {same}")
+    if not same:
+        fail("train: save -> restore did not give the state back")
+
+    # the training loop, as a user resumes hover4k's stage 1
+    zero_counts()
+    ts_loop, history = trainer.train(torch.Generator().manual_seed(6), num_updates=2,
+                                     log_every=1, resume_from=hover4k,
+                                     reset_schedules=True,
+                                     checkpoint_path=os.path.join(ckpt_dir, "loop.npz"))
+    train["loop"] = {"history": history, "launches": fs.launches}
+    if len(history) != 2 or not all(np.isfinite(v) for h in history for v in h.values()) \
+            or fs.launches == 0 or ts_loop.update_count != 2:
+        fail(f"train(): history {history}, {fs.launches} step-kernel steps")
+    print(f"[train] train(): 2 updates from {os.path.basename(hover4k)}, "
+          f"{fs.launches} step-kernel steps, checkpoint written")
+    report["train"] = train
+
     # ---- 6. the evaluator ---------------------------------------------------------
     report["evaluation"] = {}
     eval_launches = 0
@@ -565,19 +776,22 @@ def main():
 
     def step_numbers(env, es, actions, ended_frac, mixed):
         """Device time, launch-loop time, plain time and bound of one-step
-        launches; device time and bound per step of one T-step launch."""
+        launches; device time and bound per step of one T-step launch.
+        Every launch reads the same carry and writes a scratch one, so each
+        times the same work."""
         carry, init = fs.pack(es)
+        scratch = torch.empty_like(carry)
         eta = torch.randn((3, N_ENVS), device=dev) * 50.0 ** 0.5
         xbuf = torch.empty((fs.XROWS, N_ENVS), device=dev)
         kernel = lambda: fs.fused_step(env, carry, init, actions, eta,
-                                       carry_out=carry, collect_out=xbuf)
+                                       carry_out=scratch, collect_out=xbuf)
         saved, saved_calls = fs.launches, dict(fs.calls)
         loop_ms = event_time_ms(kernel, 500)
         kernel_ms = device_time_ms(kernel, 100, "fused_step_kernel")
         eta_seq = torch.randn((CHUNK, 3, N_ENVS), device=dev) * 50.0 ** 0.5
         xseq = torch.empty((CHUNK, fs.XROWS, N_ENVS), device=dev)
         rollout = lambda: fs.fused_rollout(env, carry, init, actions, eta_seq,
-                                           carry_out=carry, collect_out=xseq)
+                                           carry_out=scratch, collect_out=xseq)
         rollout_ms = event_time_ms(rollout, 3, warmup=1) / CHUNK
         fs.launches = saved
         fs.calls.update(saved_calls)
@@ -614,7 +828,10 @@ def main():
           f"{report['collector']['graphed']['env_steps_per_s']:.1f}, eager "
           f"{report['collector']['eager']['env_steps_per_s']:.1f} env-steps/s")
 
-    # block sizes, at 4096 and 16384 envs (BLOCK set for the measurement)
+    # block sizes, at 4096 and 16384 envs (BLOCK set for the measurement):
+    # every launch reads the same fresh carry and writes a scratch one, so
+    # each block size times the same work; its outputs must equal the kept
+    # block's bit for bit
     report["sweep"] = []
     sweep_envs = {"hover": (hover_env, None), "mixed4": (mixed_env, len(MIXED4))}
     for n in SWEEP_ENVS:
@@ -630,19 +847,21 @@ def main():
             eta_seq = torch.randn((SWEEP_STEPS, 3, n), device=dev) * 50.0 ** 0.5
             xbuf = torch.empty((fs.XROWS, n), device=dev)
             xseq = torch.empty((SWEEP_STEPS, fs.XROWS, n), device=dev)
+            c_one, c_many = torch.empty_like(carry), torch.empty_like(carry)
             saved, saved_calls, kept = fs.launches, dict(fs.calls), fs.BLOCK
+            outs = {}
             try:
                 for block in SWEEP_BLOCKS:
                     fs.BLOCK = block
-                    c = carry.clone()
-                    one = lambda: fs.fused_step(env_s, c, init, act, eta, carry_out=c,
-                                                collect_out=xbuf)
-                    many = lambda: fs.fused_rollout(env_s, c, init, act, eta_seq,
-                                                    carry_out=c, collect_out=xseq)
+                    one = lambda: fs.fused_step(env_s, carry, init, act, eta,
+                                                carry_out=c_one, collect_out=xbuf)
+                    many = lambda: fs.fused_rollout(env_s, carry, init, act, eta_seq,
+                                                    carry_out=c_many, collect_out=xseq)
                     row = {"envs": n, "task": name, "block": block,
                            "step_us": device_time_ms(one, 30, "fused_step_kernel") * 1e3,
                            "rollout_us_per_step":
                                event_time_ms(many, 3, warmup=1) / SWEEP_STEPS * 1e3}
+                    outs[block] = [x.clone() for x in (c_one, xbuf, c_many, xseq)]
                     report["sweep"].append(row)
                     print(f"[sweep] {n} envs, {name}, block {block}: one-step launch "
                           f"{row['step_us']:.2f} us, T-step launch "
@@ -651,13 +870,20 @@ def main():
                 fs.BLOCK = kept
             fs.launches = saved
             fs.calls.update(saved_calls)
+            for block, got in outs.items():
+                bits = sum(bit_mismatches(a, b) for a, b in zip(got, outs[kept]))
+                if bits:
+                    fail(f"sweep: block {block} differs from block {kept} in {bits} "
+                         f"values at {n} envs, {name}")
 
     nb = report["numbers"]["mixed4"]
     kernels = [{"name": fs.KERNEL, "route": "cuda",
                 "source": "heligym_tpu_torch/csrc/fused_step.cu",
-                "replaces": fs.REPLACES, "launches": coll_launches,
+                "replaces": fs.REPLACES, "launches": train_launches,
                 "launches_by_path": {"hover_rollout": hover_launches,
+                                     "torch_bench": bench_launches,
                                      "collector": coll_launches,
+                                     "train": train_launches,
                                      "evaluation": eval_launches},
                 "max_abs_err": max_abs_err, "ms": nb["kernel_ms"],
                 "plain_ms": nb["plain_ms"], "bound_ms": nb["bound_ms"],

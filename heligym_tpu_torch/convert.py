@@ -1,9 +1,11 @@
 """Carry env state, parameters and policies across frameworks as numpy arrays.
 
 Nothing here imports the JAX package: a JAX `EnvState` crosses as a dict of
-numpy arrays (see `env_state_from_numpy`), `params_to_numpy` reads only
-public dataclass fields, so it flattens either package's `HeliParams`, and a
-flax parameter dict crosses as nested numpy arrays (`policy_from_numpy`).
+numpy arrays (`env_state_from_numpy`, `env_state_to_numpy`),
+`params_to_numpy` reads only public dataclass fields, so it flattens either
+package's `HeliParams`, and a flax parameter dict and optax's Adam state
+cross as nested numpy arrays in the flax layout (`policy_from_numpy`,
+`policy_to_numpy`, `adam_state_from_numpy`, `adam_state_to_numpy`).
 """
 from __future__ import annotations
 
@@ -42,6 +44,72 @@ def env_state_from_numpy(arrays: Dict[str, np.ndarray], device) -> EnvState:
                     steps=i32("steps"), successed_steps=i32("successed_steps"),
                     init=init,
                     task_id=i32("task_id") if "task_id" in arrays else None)
+
+
+def env_state_to_numpy(es: EnvState) -> Dict[str, np.ndarray]:
+    """A batched EnvState flattened to numpy: the inverse of
+    `env_state_from_numpy` (`STATE_KEYS` plus "task_id")."""
+    wind = lambda w: w.flatten().detach().cpu().numpy()
+    arr = lambda x: x.detach().cpu().numpy()
+    return {"heli": arr(es.heli.flatten()), "wind": wind(es.wind),
+            "dots": arr(es.dots.flatten()), "obs": arr(es.obs),
+            "wind_ned": arr(es.wind_ned), "steps": arr(es.steps),
+            "successed_steps": arr(es.successed_steps),
+            "init.heli": arr(es.init.heli.flatten()), "init.wind": wind(es.init.wind),
+            "init.dots": arr(es.init.dots.flatten()), "init.obs": arr(es.init.obs),
+            "init.wind_ned": arr(es.init.wind_ned), "task_id": arr(es.task_id)}
+
+
+def flax_tree_of(net, tensors) -> Dict[str, object]:
+    """`tensors` (one per parameter of `net`, in `net.flax_leaves()` order
+    and in the parameters' layouts) as a flax parameter tree of numpy
+    arrays: kernels transposed to (in, out)."""
+    tree: Dict[str, object] = {}
+    for (name, leaf, _), t in zip(net.flax_leaves(), tensors):
+        a = t.detach().cpu().numpy()
+        if leaf is None:
+            tree[name] = a
+        else:
+            tree.setdefault(name, {})[leaf] = np.ascontiguousarray(a.T) \
+                if leaf == "kernel" else a
+    return tree
+
+
+def tensors_from_flax_tree(net, tree, device):
+    """The inverse of `_flax_tree`: one tensor per parameter of `net`."""
+    out = []
+    for name, leaf, p in net.flax_leaves():
+        a = np.asarray(tree[name] if leaf is None else tree[name][leaf], np.float32)
+        t = torch.from_numpy(np.ascontiguousarray(a.T if leaf == "kernel" else a))
+        if t.shape != p.shape:
+            raise ValueError(f"{name}.{leaf}: {tuple(a.shape)} does not fit "
+                             f"a parameter of shape {tuple(p.shape)}")
+        out.append(t.to(device))
+    return out
+
+
+def policy_to_numpy(net) -> Dict[str, object]:
+    """An `ActorCritic`'s parameters as the JAX network's flax dict: the
+    inverse of `policy_from_numpy`."""
+    return flax_tree_of(net, [p for _, _, p in net.flax_leaves()])
+
+
+def adam_state_to_numpy(net, state) -> Dict[str, object]:
+    """The learner's `AdamState` (moments in `net.flax_leaves()` order) as
+    optax's ScaleByAdamState in numpy: {"count" () int32, "mu", "nu"}, the
+    moments as flax trees of `net`'s parameters."""
+    return {"count": np.asarray(state.count.detach().cpu().numpy(), np.int32),
+            "mu": flax_tree_of(net, state.mu), "nu": flax_tree_of(net, state.nu)}
+
+
+def adam_state_from_numpy(net, arrays: Dict[str, object], device="cpu"):
+    """The inverse of `adam_state_to_numpy`, onto `device`."""
+    from .learner.optim import AdamState
+
+    return AdamState(count=torch.tensor(int(np.asarray(arrays["count"])),
+                                        dtype=torch.int32, device=device),
+                     mu=tensors_from_flax_tree(net, arrays["mu"], device),
+                     nu=tensors_from_flax_tree(net, arrays["nu"], device))
 
 
 def policy_from_numpy(params: Dict[str, dict], device="cpu"):

@@ -82,6 +82,23 @@ class ActorCritic(nn.Module):
         """The Linear layers in the JAX module's Dense_i order."""
         return [lin for lin, _ in self.dense_layers_with_gain()]
 
+    def flax_leaves(self):
+        """(flax name, leaf name, parameter) of every parameter in the leaf
+        order of the JAX network's parameter tree: the Dense_i sorted by name
+        as strings (Dense_10 before Dense_2), bias before kernel, then
+        log_std. A kernel is the transpose of its `nn.Linear` weight."""
+        dense = self.dense_layers()
+        out = []
+        for name in sorted(f"Dense_{i}" for i in range(len(dense))):
+            lin = dense[int(name[len("Dense_"):])]
+            out += [(name, "bias", lin.bias), (name, "kernel", lin.weight)]
+        return out + [("log_std", None, self.log_std)]
+
+    def actor_flax_names(self):
+        """The flax names of the actor's parameters: the torso Dense_0 ..
+        Dense_{L-1}, the mean head Dense_L, and log_std."""
+        return {f"Dense_{i}" for i in range(len(self.actor) + 1)} | {"log_std"}
+
     def forward(self, obs) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         a = c = obs
         for lin in self.actor:

@@ -1,6 +1,6 @@
 """What the evaluator's command line shares with the trainer's: the task
-registry and the task-target parser. (The training loop itself is not in
-the port yet.)"""
+registry and the task-target parser. (The training loop is
+`PPOLearner.train`; the trainer's command line is not in the port yet.)"""
 from __future__ import annotations
 
 import torch

@@ -1,11 +1,16 @@
-"""Read the JAX package's committed flat-npz checkpoints without JAX.
+"""Read and write the JAX package's flat-npz checkpoints without JAX.
 
 `heligym_tpu.utils.checkpoint.save_npz` stores a pytree as `leaf_0 ..
 leaf_{n-1}` in `tree_flatten` order, `n`, and `treedef`, the string of its
 PyTreeDef. The committed policies (`examples/*_policy.npz`) are whole
-`TrainState`s. `load_policy_npz` parses the treedef string, assigns each leaf
-its place in the tree, and returns the network parameters and the
-observation statistics; it fails loudly on a treedef it does not recognise.
+`TrainState`s. `load_train_state_npz` parses the treedef string, assigns
+each leaf its place in the tree, and returns every part of the TrainState
+(`load_policy_npz`: the network parameters, the observation statistics and
+the counter); it fails loudly on a treedef it does not recognise.
+`save_npz` writes a tree built of dicts, tuples, `Node`s and numpy leaves in
+the same format, its treedef string as JAX renders it, so that the JAX
+package's `load_npz` reads the file back against a template of the same
+structure.
 """
 from __future__ import annotations
 
@@ -124,15 +129,61 @@ def _fill(node, leaves):
     return [_fill(v, leaves) for v in node[2]]
 
 
-def load_policy_npz(path: str) -> Dict[str, Any]:
-    """The policy of a committed TrainState checkpoint:
-    {"params": {"Dense_i": {"bias", "kernel"}, ..., "log_std"},
-     "obs_stats": {"mean", "var", "count"}, "update_count": int}
-    as numpy arrays (flax layout: kernel is (in, out))."""
+class Node:
+    """A registered pytree node of the JAX package (a flax struct or a
+    namedtuple) with its children in flatten order."""
+
+    def __init__(self, name: str, children, namedtuple: bool = False):
+        self.name, self.children, self.namedtuple = name, list(children), namedtuple
+
+
+def flatten(tree) -> Tuple[str, List[np.ndarray]]:
+    """(treedef string, leaves) of `tree` as `jax.tree_util.tree_flatten`
+    gives them: dict keys in sorted order, tuples in order, a `Node`'s
+    children in order, anything else a leaf."""
+    leaves: List[np.ndarray] = []
+
+    def render(node) -> str:
+        if isinstance(node, dict):
+            return "{" + ", ".join(f"'{k}': {render(node[k])}"
+                                   for k in sorted(node)) + "}"
+        if isinstance(node, tuple):
+            return "(" + ", ".join(render(v) for v in node) + \
+                ("," if len(node) == 1 else "") + ")"
+        if isinstance(node, Node):
+            head = (f"namedtuple[{node.name}]" if node.namedtuple
+                    else f"{node.name}[()]")
+            return (f"CustomNode({head}, ["
+                    + ", ".join(render(c) for c in node.children) + "])")
+        leaves.append(np.asarray(node))
+        return "*"
+
+    return "PyTreeDef(" + render(tree) + ")", leaves
+
+
+def save_npz(path: str, tree, **extra) -> None:
+    """Write `tree` in the flat-npz format; `extra` arrays ride beside the
+    leaves under their own names (the JAX reader ignores them)."""
+    treedef, leaves = flatten(tree)
+    np.savez(path, n=len(leaves), treedef=treedef, **extra,
+             **{f"leaf_{i}": x for i, x in enumerate(leaves)})
+
+
+def load_train_state_npz(path: str) -> Dict[str, Any]:
+    """Every part of a TrainState checkpoint as numpy arrays:
+    {"treedef": str, "params": {"Dense_i": {"bias", "kernel"}, ...,
+    "log_std"} (flax layout: kernel is (in, out)), "opt_state": {"count",
+    "mu", "nu"} (optax's ScaleByAdamState, moments as flax dicts),
+    "env_state": the flattened farm (`convert.STATE_KEYS`, "task_id" and the
+    per-env "key"), "key", "update_count": int, "obs_stats": {"mean", "var",
+    "count"}, "extra": the file's other arrays}. A reader that needs the
+    exact structure (the learner) compares the treedef with its own."""
     with np.load(path, allow_pickle=False) as z:
         n = int(z["n"])
         treedef = str(z["treedef"])
         leaves = [z[f"leaf_{i}"] for i in range(n)]
+        extra = {k: z[k] for k in z.files
+                 if k not in ("n", "treedef") and not k.startswith("leaf_")}
     tree, count = parse_treedef(treedef)
     if count != n:
         raise TreedefError(f"{path}: treedef has {count} leaves, file has {n}")
@@ -144,13 +195,36 @@ def load_policy_npz(path: str) -> Dict[str, Any]:
             and len(stats_node[2]) == 3 and count_node[0] == "leaf"
             and params_node[0] == "dict" and list(params_node[1]) == ["params"]):
         raise TreedefError(f"{path}: unexpected TrainState layout: {treedef[:80]}...")
-    params = _fill(params_node, leaves)["params"]
+    try:
+        params, opt, env, key, upd, stats = _fill(tree, leaves)
+        params = params["params"]
+        (_empty, (cnt, mu, nu)) = opt
+        heli, wind, dots, obs, wind_ned, steps, succ, env_key, init, task_id = env
+        i_heli, i_wind, i_dots, i_obs, i_wind_ned = init
+        flat = {"heli": np.stack(heli, -1), "wind": np.stack(wind, -1),
+                "dots": np.stack(dots, -1), "obs": obs, "wind_ned": wind_ned,
+                "steps": steps, "successed_steps": succ, "key": env_key,
+                "init.heli": np.stack(i_heli, -1), "init.wind": np.stack(i_wind, -1),
+                "init.dots": np.stack(i_dots, -1), "init.obs": i_obs,
+                "init.wind_ned": i_wind_ned, "task_id": task_id}
+        opt_state = {"count": cnt, "mu": mu["params"], "nu": nu["params"]}
+    except (TypeError, ValueError, KeyError) as e:
+        raise TreedefError(f"{path}: unexpected TrainState layout ({e}): "
+                           f"{treedef[:80]}...") from e
     dense = sorted(k for k in params if k.startswith("Dense_"))
     if (set(params) != set(dense) | {"log_std"} or len(dense) % 2 or not dense
             or dense != sorted(f"Dense_{i}" for i in range(len(dense)))
             or any(set(params[k]) != {"bias", "kernel"} for k in dense)):
         raise TreedefError(f"{path}: unexpected network parameters {sorted(params)}")
-    mean, var, cnt = _fill(stats_node, leaves)
-    return {"params": params,
-            "obs_stats": {"mean": mean, "var": var, "count": cnt},
-            "update_count": int(leaves[count_node[1]])}
+    mean, var, s_count = stats
+    return {"treedef": treedef, "params": params, "opt_state": opt_state,
+            "env_state": flat, "key": key, "update_count": int(upd),
+            "obs_stats": {"mean": mean, "var": var, "count": s_count},
+            "extra": extra}
+
+
+def load_policy_npz(path: str) -> Dict[str, Any]:
+    """The policy of a committed TrainState checkpoint: the "params",
+    "obs_stats" and "update_count" of `load_train_state_npz`."""
+    ck = load_train_state_npz(path)
+    return {k: ck[k] for k in ("params", "obs_stats", "update_count")}

@@ -18,7 +18,7 @@ from heligym_tpu_torch.envs import (ForwardFlightTask, HeliEnv, HoverTask,
 from heligym_tpu_torch.ops.cuda import fused_step as fs, gather
 
 TASK_NAMES = ("hover", "forward", "turning", "slalom", "landing",
-              "landing_touch", "oblique", "mixed4", "mixed7")
+              "landing_touch", "oblique", "mixed4", "mixed7", "hover_heavy")
 
 
 def make_task(name, alt):
@@ -38,7 +38,7 @@ def make_task(name, alt):
                                      ("hover", "forward", "turning", "oblique")))
     if name == "mixed7":
         return MixedTask(tasks=tuple(single.values()))
-    return single[name]
+    return single["hover" if name == "hover_heavy" else name]
 
 
 def _need_card():
@@ -95,9 +95,10 @@ def test_kernel_matches_plain_on_card():
 def test_kernel_matches_plain_every_task(name):
     """Every task and MixedTask through the kernel and the plain version
     from a 60 ft/s forward trim: 30 nominal steps at the parity tolerances,
-    then a 300-step dive with identical flags and counters."""
+    then a 300-step dive with identical flags and counters; `hover_heavy`
+    on the second airframe (aw109_heavy)."""
     _need_card()
-    env = HeliEnv.build("aw109")
+    env = HeliEnv.build("aw109_heavy" if name == "hover_heavy" else "aw109")
     tr = env.trim_result({"ned_vel": [60.0, 0.0, 0.0]})
     env = env.replace(task=make_task(name, float(-tr.state.z)))
     venv = VectorHeliEnv(env, 4096)
@@ -313,3 +314,48 @@ def test_graphed_collector_equals_eager():
         carry_g, _ = fs.pack(ts_g.env_state)
         carry_e, _ = fs.pack(ts_e.env_state)
         assert _bits_equal(carry_g, carry_e)
+
+
+@pytest.mark.cuda
+def test_graph_replay_after_update_equals_eager():
+    """After a train step (whose collection captured the collector's graph
+    and whose update wrote the parameters in place), a replay of that same
+    graph equals the eager loop with the new parameters bit for bit; and
+    again after the parameters are replaced by new tensors. The rollout's
+    outputs carry no autograd history."""
+    _need_card()
+    from heligym_tpu_torch.learner import PPOConfig, PPOLearner
+    from heligym_tpu_torch.learner.evaluate import build_env
+    env, _ = build_env("hover", None, "sea_alt=start")
+    n, steps = 512, 16
+    learner = PPOLearner(env, PPOConfig(num_envs=n, rollout_steps=steps, minibatches=4,
+                                        epochs=1, lr=1e-3))
+    ts = learner.init(torch.Generator().manual_seed(0))
+    before = [p.detach().clone() for p in learner.param_list(ts.params)]
+    ts, _ = learner.train_step(ts)
+    assert any(not torch.equal(a, b) for a, b in zip(before, learner.param_list(ts.params)))
+    fields = ("obs", "action", "log_prob", "value", "reward", "terminated", "truncated",
+              "v_boot", "failed", "succ_step", "task_oh")
+
+    def replay_vs_eager(ts):
+        state = ts.generator.get_state()
+        calls = dict(fs.calls)
+        ts_g, tr_g = learner.collect(ts, ts.generator)
+        assert fs.calls["capture"] == calls["capture"]            # the same graph
+        assert fs.calls["replay"] == calls["replay"] + 1
+        g2 = torch.Generator(device="cuda")
+        g2.set_state(state)
+        ts_e, tr_e = learner.collect(ts, g2, graphed=False)
+        assert torch.equal(ts.generator.get_state(), g2.get_state())
+        for f in fields:
+            a, b = getattr(tr_g, f), getattr(tr_e, f)
+            assert not a.requires_grad and a.grad_fn is None, f
+            assert _bits_equal(a, b), f
+        assert _bits_equal(fs.pack(ts_g.env_state)[0], fs.pack(ts_e.env_state)[0])
+
+    replay_vs_eager(ts)
+    with torch.no_grad():
+        for lin in ts.params.dense_layers():
+            lin.weight = torch.nn.Parameter(lin.weight * 1.01)
+            lin.bias = torch.nn.Parameter(lin.bias + 0.01)
+    replay_vs_eager(ts)

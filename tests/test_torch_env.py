@@ -12,9 +12,11 @@ import torch
 
 from test_rollouts import _compare_traj
 
-from heligym_tpu_torch.envs import (EnvState, HeliEnv, HoverTask, ResetSnapshot,
-                                    VectorHeliEnv)
+from heligym_tpu_torch.envs import (EnvState, ForwardFlightTask, HeliEnv, HoverTask,
+                                    ResetSnapshot, VectorHeliEnv)
+from heligym_tpu_torch.envs.trim import trim
 from heligym_tpu_torch.ops import dryden
+from heligym_tpu_torch.ops import terrain as terrain_ops
 from heligym_tpu_torch.ops.state import HeliState, WindState
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -128,6 +130,66 @@ def test_crash_detection(fixtures, env):
 
 
 @torch.no_grad()
+def test_forward_flight_rewards(fixtures):
+    """The `fwd` case of the reference rollouts (ForwardFlightTask): rewards
+    within 2e-3 over 150 steps and the same done stream, as the JAX
+    package's test_rollouts.py holds its own env."""
+    f = fixtures("rollouts")
+    env = HeliEnv.build("aw109", task=ForwardFlightTask(), device="cpu")
+    obs, rew, done, trunc, flags, states = replay(
+        env, f["fwd_st0"], f["fwd_obs0"], f["fwd_etas"], f["fwd_actions"])
+    n = min(len(rew), len(f["fwd_rew"]))
+    np.testing.assert_allclose(rew[:150], f["fwd_rew"][:150], atol=2e-3)
+    assert (done[:n] == f["fwd_done"][:n]).all()
+
+
+@pytest.fixture(scope="module")
+def heavy_env():
+    return HeliEnv.build("aw109_heavy", task=HoverTask(), device="cpu")
+
+
+@pytest.mark.parametrize("case", ["ground", "cruise"])
+def test_heavy_trim_matches_reference(fixtures, heavy_env, case):
+    """The second airframe's trim fixed points under the fixture's constant
+    wind (normalized atol 2e-3, actions atol 2e-3), as the JAX package's
+    test_second_airframe.py holds its own trim."""
+    f = fixtures("rollouts_heavy")
+    cond = _default_cond(ast.literal_eval(str(f[f"{case}_cond"])))
+    tr = trim(heavy_env.params, heavy_env.terrain,
+              torch.tensor(f[f"{case}_wind"], dtype=torch.float32), cond)
+    ref = f[f"{case}_state0"]
+    scale = np.maximum(np.abs(ref), 1.0)
+    np.testing.assert_allclose(tr.state.flatten().numpy() / scale, ref / scale,
+                               atol=2e-3, err_msg=case)
+    np.testing.assert_allclose(tr.action.numpy(), f[f"{case}_action"], atol=2e-3)
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("case", ["ground", "cruise"])
+def test_heavy_rollout_matches_reference(fixtures, heavy_env, case):
+    """Held-action RK4 trajectories of the second airframe from the
+    reference's trim state with its frozen wind (the helicopter step alone,
+    terrain height from the committed state): normalized drift below 2e-3
+    over 100 steps and 5e-2 over the 250, as test_second_airframe.py."""
+    f = fixtures("rollouts_heavy")
+    heli = HeliState.unflatten(torch.tensor(f[f"{case}_state0"], dtype=torch.float32))
+    act = tuple(torch.tensor(a, dtype=torch.float32) for a in f[f"{case}_action"])
+    wind = tuple(torch.tensor(w, dtype=torch.float32) for w in f[f"{case}_wind"])
+    states, obs = [], []
+    for _ in range(f[f"{case}_states"].shape[0]):
+        h = terrain_ops.ground_height(heavy_env.terrain, heli.x, heli.y)
+        heli, _, o = heavy_env.heli_step_with_h(heli, act, wind, h)
+        states.append(heli.flatten().numpy())
+        obs.append(torch.stack(o, dim=-1).numpy().astype(np.float64))
+    for ours, ref in ((np.stack(states), f[f"{case}_states"]),
+                      (np.stack(obs), f[f"{case}_obs"])):
+        scale = np.maximum(np.abs(ref).max(axis=0), 1.0)
+        err = np.abs(ours - ref) / scale
+        assert err[:100].max() < 2e-3, f"{case}: drift {err[:100].max():.2e} in 100 steps"
+        assert err.max() < 5e-2, f"{case}: drift {err.max():.2e} over {len(ref)} steps"
+
+
+@torch.no_grad()
 def test_vector_step_resets_and_draws_noise(env):
     """Batched eager step: generator-driven noise is reproducible, and a
     diving batch ends its episodes and restarts from the snapshot."""
@@ -187,8 +249,11 @@ def test_port_imports_no_jax():
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert res.returncode == 0, res.stderr
     assert "FORBIDDEN []" in res.stdout, res.stdout
-    # chip_smoke.py and every module of the port name no such import
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    # chip_smoke.py, the port's tools and every module of the port name no
+    # such import
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "tools", n) for n in sorted(os.listdir(os.path.join(REPO, "tools")))
+        if n.startswith("torch_") and n.endswith(".py")]
     for root, _, names in os.walk(os.path.join(REPO, "heligym_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     for path in files:

@@ -140,6 +140,37 @@ def test_fused_plain_equals_port_eager_step(env):
     assert torch.equal(es_f.steps, es.steps)
 
 
+def test_fused_plain_heavy_equals_port_eager_step():
+    """The second airframe through the fused step's plain version (its
+    constants from `const_values(env)`) equals the port's eager batched
+    step + auto_reset bit for bit over 20 perturbed steps, with one lane
+    out of bounds at the start (it fails on step 0 and resets)."""
+    env = HeliEnv.build("aw109_heavy", task=HoverTask(), device="cpu")
+    tr = env.trim_result()
+    venv = VectorHeliEnv(env, 16)
+    es, _ = venv.reset_from_trim(tr)
+    x = es.heli.x.clone()
+    x[0] = env.params.ENV.NS_MAX / 2.0 + 10.0
+    es = es.replace(heli=es.heli.replace(x=x))
+    rng = np.random.default_rng(5)
+    act = torch.from_numpy((tr.action.numpy() + 0.05 * rng.standard_normal((20, 16, 4))
+                            ).astype(np.float32))
+    eta = torch.from_numpy((rng.standard_normal((20, 3, 16)) * 50 ** 0.5).astype(np.float32))
+    roll = fs.build_fused_rollout(env, 16, 20, collect=("reward", "done", "obs"),
+                                  eta_mode="inject")
+    with torch.no_grad():
+        es_f, outs = roll(es, act, eta)
+        done = []
+        for t in range(20):
+            es, out = venv.step_with_eta(es, act[t], eta[t].T)
+            done.append(out.done)
+    assert torch.equal(outs["done"], torch.stack(done)) and bool(outs["done"][0, 0])
+    assert torch.equal(outs["reward"][-1], out.reward)
+    assert torch.equal(outs["obs"][-1], out.obs)
+    assert torch.equal(es_f.heli.flatten(), es.heli.flatten())
+    assert torch.equal(es_f.steps, es.steps)
+
+
 def test_batch_mode_noise_from_generator(env):
     tr = env.trim_result()
     es, _ = VectorHeliEnv(env, 8).reset_from_trim(tr)
