@@ -44,20 +44,34 @@ failure exits non-zero:
      repeated on the CPU from the same rollout, parameters and shuffles,
      held to the card's; save -> restore bit-equal; then `train()` for 2
      updates from the checkpoint, as a user resumes a run;
-  6. the evaluator: `multi_seed_evaluate` of the committed multitask4 and
-     hover4k policies beside their committed scores;
+  5c. randomized resets and the trainer CLI: the batched Newton trim on the
+     card for 2048 start altitudes of the landing band (6-55 ft) and three
+     forward-flight conditions, held against the same solve on the CPU; a
+     2048-env farm from `reset_randomized` through the kernel against its
+     plain version bit for bit (30 steps and a 300-step dive whose ended
+     envs must get their own snapshots back); the graphed collector against
+     the eager loop from that farm with examples/landing_band_policy.npz;
+     then `python -m heligym_tpu_torch.learner.train` (its `main`) for 2
+     updates of the committed examples/landing_band_training_metrics.json
+     config, with the start-band evaluation after each update, each update
+     timed on the host clock split into the train step and the evaluation;
+  6. the evaluator: `multi_seed_evaluate` of the committed multitask4,
+     hover4k and landing_band (on the 6-55 ft start grid) policies beside
+     their committed scores;
   7. numbers: the step kernel's device time per step, one-step and T-step
      launches, beside their bounds and the plain version; the block sizes
      at 4096 and 16384 envs, each timed from a fresh carry that every
      launch reads and none overwrites, its outputs held bit for bit against
      the kept block's; one JSON line describing each kernel.
-Before each path (3, the bench, 4, 5, 5b, 6) every kernel's counts are set
+Before each path (3, the bench, 4, 5, 5b, 5c, 6) every kernel's counts are set
 to 0, and read just after; a path whose kernel never ran fails the script. The step
 kernel's count is of env steps it ran: a T-step launch or a graph replay of
 T steps counts T, a graph capture 1 (its warm-up launch); the profiled
 collector rollout must show exactly T step-kernel executions. The last
 line is {"ok": true, "device": {...}}; the line
-starting "[report]" holds every measured number as JSON.
+starting "[report]" holds every measured number as JSON. The host trims
+are cached under build/chip_smoke/trim_cache, emptied at the start, so
+every trim of a run is solved by the checkout's own code.
 """
 import contextlib
 import copy
@@ -65,9 +79,10 @@ import importlib.util
 import io
 import json
 import os
-import subprocess
+import shutil
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -87,24 +102,26 @@ TOL = {"reward_atol": 2e-5, "state_rtol": 2e-4, "state_atol": 2e-4,
        "obs_rtol": 1e-4, "obs_atol": 2e-3}
 EVAL_MARGIN = 0.03             # a per-head success mean may lie this far below
 MIXED4 = ("hover", "forward", "turning", "oblique")
+BAND = (6.0, 55.0)             # the landing band's start altitudes [ft above ground]
+BAND_ENVS = 2048               # examples/landing_band_policy.npz's farm
+BAND_CPU_ENVS = 64             # band envs whose trim is repeated on the CPU
+TRIM_TOL = 5e-3                # card vs CPU trim: state over max(|CPU|, 1), action
+CLI_MARGIN = 0.06              # one fixed-noise evaluation after 1-2 updates at lr 3e-5
+LANDING_BAND = "landing_band"
+# the committed policies scored in phase 6; `heads` are the gated ones
 EVALS = {
     "multitask4": dict(tasks=",".join(MIXED4), task="hover",
-                       target="sea_alt=start,vel=60", episodes=512),
+                       target="sea_alt=start,vel=60", episodes=512, heads=("mean",)),
     "hover4k": dict(tasks=None, task="hover", target="sea_alt=start",
-                    episodes=256),
+                    episodes=256, heads=("mean",)),
+    LANDING_BAND: dict(tasks=None, task="landing", target="touch_alt=ground",
+                       episodes=256, start_band=BAND, heads=("mean", "stochastic")),
 }
 
 
 def fail(msg):
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
-
-
-def card_line():
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    return res.stdout.strip().splitlines()[0] if res.returncode == 0 else "unknown"
 
 
 def count_elementwise_ops(fn):
@@ -154,7 +171,11 @@ def main():
                                             ObliqueFlightTask, SlalomTask,
                                             TurningFlightTask, VectorHeliEnv)
         from heligym_tpu_torch.learner import PPOConfig, PPOLearner
+        from heligym_tpu_torch.learner import evaluate as evaluate_mod, train as train_cli
         from heligym_tpu_torch.learner.evaluate import build_env, multi_seed_evaluate
+        from heligym_tpu_torch.envs.trim import trim_batched
+        from heligym_tpu_torch.ops import dryden
+        from heligym_tpu_torch.utils.constants import EPS
         from heligym_tpu_torch.ops.cuda import build, fused_step as fs, gather
         from heligym_tpu_torch.utils.profiling import (device_time_ms, event_time_ms,
                                                        kernel_times_ms)
@@ -163,9 +184,13 @@ def main():
         bench = load_tool("torch_bench")
     except (ImportError, OSError) as e:
         fail(f"the port is not beside this script ({e}); run it from a checkout")
+    # every trim of this run is solved by this checkout's code
+    trim_cache = os.path.join(here, "build", "chip_smoke", "trim_cache")
+    shutil.rmtree(trim_cache, ignore_errors=True)
+    os.environ["HELIGYM_TPU_TORCH_CACHE"] = trim_cache
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    report = {"card": card_line(), "torch": torch.__version__,
+    report = {"card": train_cli.card_line() or "unknown", "torch": torch.__version__,
               "cuda": torch.version.cuda, "block": fs.BLOCK}
     dev = torch.device("cuda")
 
@@ -201,13 +226,14 @@ def main():
     # ---- 2. kernel against its plain version on the card ---------------------
     rng = np.random.default_rng(0)
 
-    def inputs(tr, steps, dive):
-        act = np.tile(tr.action.cpu().numpy(), (steps, N_ENVS, 1))
+    def inputs(action, n, steps, dive):
+        """Actions around `action` ((4,), or (n, 4) per env) and noise for
+        `steps` steps of n envs."""
+        act = np.tile(np.broadcast_to(action.cpu().numpy(), (n, 4)), (steps, 1, 1))
         act = (act + 0.02 * rng.standard_normal(act.shape)).astype(np.float32)
         if dive:
             act[..., 0] = -1.0
-        eta = (rng.standard_normal((steps, 3, N_ENVS)) * 50.0 ** 0.5
-               ).astype(np.float32)
+        eta = (rng.standard_normal((steps, 3, n)) * 50.0 ** 0.5).astype(np.float32)
         return torch.from_numpy(act).to(dev), torch.from_numpy(eta).to(dev)
 
     def diff(a, b):
@@ -226,11 +252,13 @@ def main():
         asserts the parity tolerances at every step, the dive only compares
         the discrete streams (a NaN reward equals a NaN reward). Then the
         same inputs through one T-step launch, against the one-step
-        launches."""
-        act, eta = inputs(tr, steps, dive)
+        launches. On the step an env ends, the kernel must have put back its
+        own snapshot's rows."""
+        act, eta = inputs(tr.action, es.steps.shape[0], steps, dive)
         ck, init = fs.pack(es)
         c0, cp = ck.clone(), ck.clone()
-        err = {"reward": 0.0, "obs": 0.0, "state": 0.0, "one_launch": 0.0}
+        err = {"reward": 0.0, "obs": 0.0, "state": 0.0, "one_launch": 0.0,
+               "resets": 0, "snapshot_bits": 0}
         close = lambda a, b, rtol, atol: torch.testing.assert_close(
             a, b, rtol=rtol, atol=atol, equal_nan=True)
         xs_k, dones_p = [], []
@@ -247,6 +275,10 @@ def main():
                                  diff(xk[fs.COBS0:fs.CSUCC], xp[fs.COBS0:fs.CSUCC]),
                                  diff(xk[fs.CFINAL0:], xp[fs.CFINAL0:]))
                 err["state"] = max(err["state"], diff(ck[:fs.SROWS], cp[:fs.SROWS]))
+                ended = (xk[fs.CDONE] != 0) | (xk[fs.CTRUNC] != 0)
+                err["resets"] += int(ended.sum())
+                err["snapshot_bits"] += bit_mismatches(ck[:fs.SROWS][:, ended],
+                                                       init[:fs.SROWS][:, ended])
                 if not dive:
                     close(xk[fs.CREW], xp[fs.CREW], 0, TOL["reward_atol"])
                     for lo, hi in ((fs.COBS0, fs.CSUCC), (fs.CFINAL0, fs.XROWS)):
@@ -284,7 +316,7 @@ def main():
         for steps in nominal:
             err, _, _, _, _, forms = compare(env, es, tr, steps, dive=False)
             out[f"nominal_{steps}"] = {**err, "forms": forms}
-            print(f"[check] {label}: kernel vs plain, {steps} step(s) at {N_ENVS} "
+            print(f"[check] {label}: kernel vs plain, {steps} step(s) at {es.steps.shape[0]} "
                   f"envs: max |err| reward {err['reward']:.3e} obs {err['obs']:.3e} "
                   f"state {err['state']:.3e}")
             check_forms(label, steps, forms)
@@ -293,8 +325,11 @@ def main():
         out["dive_300"] = {**err, "done_frac": float(dk.mean()),
                            "done_mismatch": mismatch, "forms": forms}
         print(f"[check] {label}: dive 300 steps: done fraction "
-              f"{float(dk.mean()):.4f}, mismatched done flags {mismatch}")
+              f"{float(dk.mean()):.4f}, mismatched done flags {mismatch}, "
+              f"{err['resets']} resets, snapshot rows differing {err['snapshot_bits']}")
         check_forms(label + " dive", 300, forms)
+        if err["snapshot_bits"]:
+            fail(f"{label}: an env that ended did not get its snapshot back")
         if not bool(dk.any()):
             fail(f"{label}: the dive never terminated")
         if mismatch:
@@ -449,26 +484,33 @@ def main():
     task_ids = np.arange(N_ENVS) % n_tasks
     ts0 = learner.restore(ckpt).replace(
         env_state=learner.init(task_ids=task_ids).env_state)
-    # the graph replay against the eager loop, bit for bit, over two rollouts
-    outs = {}
-    for graphed in (True, False):
-        gen = torch.Generator(device=env.device).manual_seed(1)
-        ts, trajs = ts0, []
-        for _ in range(2):
-            ts, traj = learner.collect(ts, gen, graphed=graphed)
-            trajs.append(traj)
-        outs[graphed] = (fs.pack(ts.env_state)[0], trajs, gen.get_state())
     fields = ("obs", "action", "log_prob", "value", "reward", "terminated",
               "truncated", "v_boot", "failed", "succ_step", "task_oh")
-    bits = bit_mismatches(outs[True][0], outs[False][0]) + sum(
-        bit_mismatches(getattr(a, f), getattr(b, f))
-        for a, b in zip(outs[True][1], outs[False][1]) for f in fields)
-    same_gen = torch.equal(outs[True][2], outs[False][2])
-    print(f"[check] collector: graph replay vs eager loop, 2 x {ROLLOUT_STEPS} steps "
-          f"at {N_ENVS} envs: values differing {bits}, generator states equal "
-          f"{same_gen}")
-    if bits or not same_gen:
-        fail("the graphed collector differs from the eager loop")
+
+    def graph_vs_eager(label, learner, ts0):
+        """The graph replay against the eager loop, bit for bit, over two
+        rollouts from `ts0`."""
+        outs = {}
+        for graphed in (True, False):
+            gen = torch.Generator(device=dev).manual_seed(1)
+            ts, trajs = ts0, []
+            for _ in range(2):
+                ts, traj = learner.collect(ts, gen, graphed=graphed)
+                trajs.append(traj)
+            outs[graphed] = (fs.pack(ts.env_state)[0], trajs, gen.get_state())
+        bits = bit_mismatches(outs[True][0], outs[False][0]) + sum(
+            bit_mismatches(getattr(a, f), getattr(b, f))
+            for a, b in zip(outs[True][1], outs[False][1]) for f in fields)
+        same_gen = torch.equal(outs[True][2], outs[False][2])
+        n = ts0.env_state.steps.shape[0]
+        print(f"[check] {label}: graph replay vs eager loop, 2 x {ROLLOUT_STEPS} steps "
+              f"at {n} envs: values differing {bits}, generator states equal "
+              f"{same_gen}")
+        if bits or not same_gen:
+            fail(f"{label}: the graphed collector differs from the eager loop")
+        return {"values_differing": bits, "generator_states_equal": same_gen}
+
+    graph_vs_eager("collector", learner, ts0)
 
     def timed_collect(graphed):
         gen = torch.Generator(device=env.device).manual_seed(0)
@@ -721,6 +763,174 @@ def main():
           f"{fs.launches} step-kernel steps, checkpoint written")
     report["train"] = train
 
+    # ---- 5c. randomized resets and the trainer CLI --------------------------------
+    zero_counts()
+    band = {}
+    sampler = train_cli.make_alt_band_sampler(*BAND)
+    env, _ = build_env("landing", None, "touch_alt=ground")
+    conds = sampler(torch.Generator(device=dev).manual_seed(7), BAND_ENVS)
+    # the three conditions of tests/test_trim.py's batched check after the band
+    extra = {"ned_vel": torch.tensor([[0.0, 0.0, 0.0], [50.0, 0.0, 0.0],
+                                      [100.0, 10.0, 0.0]], device=dev),
+             "gr_alt": torch.tensor([100.0, 1000.0, 3000.0], device=dev)}
+    conds = {k: torch.cat([v, extra[k] if k in extra else torch.zeros_like(v[:3])])
+             for k, v in conds.items()}
+    wind = dryden.mean_wind(env.wind_params, device=dev)
+    trim_ms = []
+    for _ in range(2):                      # the first call pays the warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve = trim_batched(env.params, env.terrain, wind, conds)
+        torch.cuda.synchronize()
+        trim_ms.append((time.perf_counter() - t0) * 1e3)
+    above = int((solve.sq_residual[:BAND_ENVS] > EPS).sum())
+    above_extra = int((solve.sq_residual[BAND_ENVS:] > EPS).sum())
+    pick = torch.cat([torch.arange(BAND_CPU_ENVS), torch.arange(BAND_ENVS, BAND_ENVS + 3)])
+    cpu = trim_batched(env.params, env.terrain.to("cpu"), wind.cpu(),
+                       {k: v.cpu()[pick] for k, v in conds.items()})
+    ref = cpu.result.state.flatten()
+    scale = ref.abs().clamp(min=1.0)
+    state_err = float(((solve.result.state.flatten().cpu()[pick] - ref) / scale).abs().max())
+    action_err = float((solve.result.action.cpu()[pick] - cpu.result.action).abs().max())
+    band["trim"] = {"envs": BAND_ENVS + 3, "ms": trim_ms[-1], "first_call_ms": trim_ms[0],
+                    "iterations": solve.iterations, "band_above_eps": above,
+                    "extra_above_eps": above_extra,
+                    "max_sq_residual": float(solve.sq_residual.max()),
+                    "cpu_envs": len(pick), "cpu_iterations": cpu.iterations,
+                    "state_err_vs_cpu": state_err, "action_err_vs_cpu": action_err}
+    print(f"[trim] batched Newton on the card, {BAND_ENVS} band conditions "
+          f"({BAND[0]:g}-{BAND[1]:g} ft) + 3 of tests/test_trim.py: {trim_ms[-1]:.1f} ms "
+          f"(first call {trim_ms[0]:.1f} ms), {solve.iterations} iterations; envs above "
+          f"EPS: band {above}, others {above_extra}; max squared residual "
+          f"{band['trim']['max_sq_residual']:.3e}")
+    print(f"[check] trim: card vs CPU, {len(pick)} envs: max |state| error over "
+          f"max(|CPU|, 1) {state_err:.3e}, max |action| error {action_err:.3e} "
+          f"(tolerance {TRIM_TOL:g})")
+    if above or above_extra:
+        fail(f"trim: {above + above_extra} envs end with a residual above EPS")
+    if max(state_err, action_err) > TRIM_TOL:
+        fail("trim: the card's batched trim differs from the CPU's")
+
+    # the randomized farm through the kernel, against its plain version; a 5 s
+    # episode wall makes every env that the dive does not crash reset too
+    env_k = env.replace(max_time=5.0)
+    es, _ = VectorHeliEnv(env_k, BAND_ENVS).reset_randomized(
+        torch.Generator(device=dev).manual_seed(7), sampler)
+    farm_actions = types.SimpleNamespace(action=solve.result.action[:BAND_ENVS])
+    band["kernel"] = check_task("landing band farm", env_k, es, farm_actions, (30,))
+    for k, res in band["kernel"].items():
+        worst = max(res["reward"], res["obs"], res["state"], res["one_launch"])
+        if worst != 0.0:
+            fail(f"landing band farm: the kernel differs from its plain version "
+                 f"({k}: max |err| {worst})")
+    if band["kernel"]["dive_300"]["resets"] == 0:
+        fail("landing band farm: no env reset in the dive")
+    max_abs_err = max(max_abs_err, *(band["kernel"]["nominal_30"][k]
+                                     for k in ("reward", "obs", "state")))
+
+    # the graphed collector from that farm, with the committed band policy
+    band_learner = PPOLearner(env, PPOConfig(num_envs=BAND_ENVS, rollout_steps=ROLLOUT_STEPS))
+    es, _ = band_learner.venv.reset_randomized(torch.Generator(device=dev).manual_seed(7),
+                                               sampler)
+    band_ts = band_learner.restore(os.path.join(here, "examples", "landing_band_policy.npz")
+                                   ).replace(env_state=es)
+    band["collector"] = graph_vs_eager("landing band collector", band_learner, band_ts)
+
+    # the trainer's command line on the committed config, 2 updates
+    with open(os.path.join(here, "examples", "landing_band_training_metrics.json")) as f:
+        config = json.load(f)["config"]
+    ckpt_dir = os.path.join(here, "build", "chip_smoke")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    config.update(updates=2, eval_every=1, fresh_farm=True, resume_num_envs=None,
+                  resume=os.path.join(here, config["resume"]),
+                  checkpoint=os.path.join(ckpt_dir, "landing_band.npz"),
+                  metrics_out=os.path.join(ckpt_dir, "landing_band_metrics.json"))
+    argv = []
+    for k, v in config.items():
+        flag = "--" + k.replace("_", "-")
+        if v is True:
+            argv.append(flag)
+        elif v is not None and v is not False:
+            argv += [flag, str(v)]
+    for stale in (config["checkpoint"], config["checkpoint"] + ".best.npz"):
+        if os.path.exists(stale):
+            os.remove(stale)
+    updates, evals = [], []
+    step_fn, make_ev = PPOLearner.train_step, evaluate_mod.make_evaluator
+
+    def timed_step(self, ts, graphed=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(self, ts, graphed)
+        torch.cuda.synchronize()
+        updates.append({"train_step_ms": (time.perf_counter() - t0) * 1e3})
+        return out
+
+    def timed_evaluator(*args, **kw):
+        ev = make_ev(*args, **kw)
+
+        def run(ts, generator):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ev(ts, generator)
+            updates[-1]["eval_ms"] = (time.perf_counter() - t0) * 1e3
+            evals.append(res)
+            return res
+        return run
+    before, before_calls = fs.launches, dict(fs.calls)
+    print(f"[cli] python -m heligym_tpu_torch.learner.train {' '.join(argv)}")
+    PPOLearner.train_step, evaluate_mod.make_evaluator = timed_step, timed_evaluator
+    try:
+        t0 = time.perf_counter()
+        train_cli.main(argv)
+        cli_s = time.perf_counter() - t0
+    finally:
+        PPOLearner.train_step, evaluate_mod.make_evaluator = step_fn, make_ev
+    cli_launches = fs.launches - before
+    cli_calls = {k: v - before_calls[k] for k, v in fs.calls.items()}
+    with open(config["metrics_out"]) as f:
+        history = json.load(f)["history"]
+    eval_steps = env.time_up_steps + 3
+    for u in updates:
+        u["wall_ms"] = u["train_step_ms"] + u.get("eval_ms", 0.0)
+        u["eval_share"] = u.get("eval_ms", 0.0) / u["wall_ms"]
+    with open(os.path.join(here, "examples", f"{LANDING_BAND}_eval.json")) as f:
+        committed_det = json.load(f)["aggregate"]["mean"]["success_frac"]["mean"]
+    band["cli"] = {"argv": argv, "wall_s": cli_s, "updates": updates,
+                   "eval_success_frac": [e["success_frac"] for e in evals],
+                   "committed_det_success": committed_det, "history": history,
+                   "launches": cli_launches, "calls": cli_calls}
+    for i, u in enumerate(updates):
+        print(f"[cli] update {i + 1}: {u['wall_ms']:.1f} ms = train step "
+              f"{u['train_step_ms']:.1f} ms + evaluation {u.get('eval_ms', 0.0):.1f} ms "
+              f"({config['eval_episodes']} episodes x {eval_steps} steps; share "
+              f"{u['eval_share']:.3f}); eval "
+              f"success {evals[i]['success_frac']:.4f} (committed det {committed_det:.4f})")
+    print(f"[cli] main: {cli_s:.1f} s, {cli_launches} step-kernel steps in {cli_calls}")
+    if len(updates) != 2 or len(evals) != 2:
+        fail(f"cli: {len(updates)} updates, {len(evals)} evaluations, not 2 and 2")
+    if not history or not all(np.isfinite(v) for h in history for v in h.values()):
+        fail(f"cli: non-finite history {history}")
+    if not all(k in history[-1] for k in ("eval_success_frac", "eval_fail_frac",
+                                          "eval_timeout_frac")):
+        fail(f"cli: no eval_* keys in the history: {sorted(history[-1])}")
+    if not os.path.exists(config["checkpoint"] + ".best.npz"):
+        fail("cli: no .best.npz was written")
+    if any(e["success_frac"] < committed_det - CLI_MARGIN for e in evals):
+        fail(f"cli: an evaluation scored {band['cli']['eval_success_frac']}, more than "
+             f"{CLI_MARGIN} below the committed {committed_det:.4f}")
+    want = {"replay": 2, "capture": 1, "step": 2 * eval_steps}
+    if cli_launches != 2 * ROLLOUT_STEPS + 1 + 2 * eval_steps or any(
+            cli_calls[k] != v for k, v in want.items()):
+        fail(f"cli: the step kernel ran {cli_launches} steps in {cli_calls}, expected "
+             f"2 replays of {ROLLOUT_STEPS}, one capture and {want['step']} one-step "
+             f"launches")
+    band_launches = fs.launches
+    band["launches"] = band_launches
+    if band_launches == 0:
+        fail("randomized resets: the step kernel never ran")
+    report["randomized"] = band
+
     # ---- 6. the evaluator ---------------------------------------------------------
     report["evaluation"] = {}
     eval_launches = 0
@@ -730,10 +940,13 @@ def main():
         ts_e = learner_e.restore(os.path.join(here, "examples", f"{name}_policy.npz"))
         steps = env.time_up_steps + 3
         ids = np.arange(cfg["episodes"]) % n_tasks if n_tasks else None
+        grid = (train_cli.make_alt_grid_sampler(*cfg["start_band"])
+                if "start_band" in cfg else None)
         zero_counts()
         t0 = time.perf_counter()
         res = multi_seed_evaluate(env, learner_e, ts_e, episodes=cfg["episodes"],
-                                  steps=steps, seeds=(0, 1, 2), task_ids=ids)
+                                  steps=steps, seeds=(0, 1, 2), task_ids=ids,
+                                  cond_sampler=grid)
         wall = time.perf_counter() - t0
         if fs.launches != 6 * steps or fs.calls["step"] != 6 * steps:
             fail(f"evaluation {name}: the kernel ran {fs.launches} steps in "
@@ -749,11 +962,14 @@ def main():
         report["evaluation"][name] = {
             "wall_s": wall, "launches": fs.launches, "aggregate": res["aggregate"],
             "success_mean_vs_committed": pairs}
+        starts = (f" from the {cfg['start_band'][0]:g}-{cfg['start_band'][1]:g} ft "
+                  f"start grid" if grid else "")
         print(f"[eval] {name}: 2 policies x seeds 0,1,2 x {cfg['episodes']} episodes "
-              f"x {steps} steps in {wall:.1f} s; success_frac mean (this run, committed):")
+              f"x {steps} steps{starts} in {wall:.1f} s; success_frac mean (this run, "
+              f"committed):")
         for k, (got, want) in pairs.items():
             print(f"[eval]   {k}: {got:.4f}  {want:.4f}")
-            if k.startswith("mean.") and got < want - EVAL_MARGIN:
+            if k.split(".")[0] in cfg["heads"] and got < want - EVAL_MARGIN:
                 fail(f"evaluation {name}: {k} {got:.4f} lies more than "
                      f"{EVAL_MARGIN} below the committed {want:.4f}")
 
@@ -884,6 +1100,7 @@ def main():
                                      "torch_bench": bench_launches,
                                      "collector": coll_launches,
                                      "train": train_launches,
+                                     "randomized": band_launches,
                                      "evaluation": eval_launches},
                 "max_abs_err": max_abs_err, "ms": nb["kernel_ms"],
                 "plain_ms": nb["plain_ms"], "bound_ms": nb["bound_ms"],

@@ -14,12 +14,21 @@ Step ordering preserved from the reference:
 
 The env runs on the CUDA card unless the caller asks for another device:
 `HeliEnv.build(device=None)` means "cuda" and raises when there is no card.
+
+Host trims are kept in a disk cache under `HELIGYM_TPU_TORCH_CACHE`
+(default `~/.cache/heligym_tpu_torch`), apart from the JAX package's cache:
+the two solvers stop at slightly different iterates.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
+import tempfile
+import zipfile
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..models import HeliParams, load_params
@@ -106,6 +115,53 @@ def _accum_steps_until(threshold: float, dt: float, strict: bool) -> int:
         acc += dt
         n += 1
     return n
+
+
+def _trim_cache_path(model_name, wind_params, cond) -> str:
+    """The cache file of a trim: keyed by the model, the mean wind and the
+    trim condition, the inputs the solve depends on."""
+    blob = repr((model_name, wind_params.mean_ned,
+                 sorted((k, repr(v)) for k, v in cond.items()))).encode()
+    digest = hashlib.sha1(blob).hexdigest()[:16]
+    root = os.environ.get("HELIGYM_TPU_TORCH_CACHE",
+                          os.path.join(os.path.expanduser("~"), ".cache",
+                                       "heligym_tpu_torch"))
+    return os.path.join(root, f"trim_{model_name}_{digest}.npz")
+
+
+def _trim_cache_load(model_name, wind_params, cond) -> Optional[TrimResult]:
+    """The cached trim on the CPU, or None: a missing or unreadable file is
+    a miss."""
+    path = _trim_cache_path(model_name, wind_params, cond)
+    try:
+        with np.load(path) as z:
+            return TrimResult(state=HeliState.unflatten(torch.from_numpy(z["state"])),
+                              action=torch.from_numpy(z["action"]),
+                              obs=torch.from_numpy(z["obs"]),
+                              dots=HeliState.unflatten(torch.from_numpy(z["dots"])))
+    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+        return None
+
+
+def _trim_cache_store(model_name, wind_params, cond, tr: TrimResult) -> None:
+    """Write the trim through a temporary file and an atomic rename, so that
+    processes storing the same key at once never leave a torn file. A cache
+    that cannot be written is skipped."""
+    path = _trim_cache_path(model_name, wind_params, cond)
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), suffix=".tmp")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                np.savez(f, state=tr.state.flatten().cpu().numpy(),
+                         action=tr.action.cpu().numpy(), obs=tr.obs.cpu().numpy(),
+                         dots=tr.dots.flatten().cpu().numpy())
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    except OSError:
+        pass
 
 
 def resolve_device(device=None) -> torch.device:
@@ -268,12 +324,23 @@ class HeliEnv:
         return new_es, out
 
     # -- reset -------------------------------------------------------------
-    def trim_result(self, trim_cond: Optional[dict] = None) -> TrimResult:
-        """Host Newton trim (on the CPU) for the given condition."""
+    def trim_result(self, trim_cond: Optional[dict] = None,
+                    use_cache: bool = True) -> TrimResult:
+        """Host Newton trim (on the CPU) for the given condition, through
+        the disk cache unless `use_cache` is False: the trim is
+        deterministic in (model, condition, mean wind), and the host solve
+        costs seconds."""
         cond = self.default_trim_cond()
         cond.update(trim_cond or {})
-        return trim(self.params, self.terrain.to("cpu"),
-                    dryden.mean_wind(self.wind_params), cond)
+        if use_cache:
+            cached = _trim_cache_load(self.params.name, self.wind_params, cond)
+            if cached is not None:
+                return cached
+        tr = trim(self.params, self.terrain.to("cpu"),
+                  dryden.mean_wind(self.wind_params), cond)
+        if use_cache:
+            _trim_cache_store(self.params.name, self.wind_params, cond, tr)
+        return tr
 
     def reset_from_trim(self, tr: TrimResult) -> Tuple[EnvState, torch.Tensor]:
         """EnvState at a solved trim point, on the env's device. Like the

@@ -9,14 +9,19 @@ stops on a 5-second wall clock; an iteration cap is deterministic).
 
 The solve runs on the CPU in float32: it is an init-time scalar Newton with
 tight host coupling. The caller's reset moves the result to the env's device
-once. (The batched on-device `trim_batched` and the disk cache are not ported
-yet.)
+once.
+
+`trim_batched` is the JAX package's batched Newton for randomized resets:
+one solve per env on the device of its conditions, with an exact
+forward-mode Jacobian, a batched (B, 16, 16) solve and all ten halvings of
+the line search evaluated at once. It converges to the host solver's fixed
+points within tolerance but is not bit-identical to it.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Tuple
+from typing import Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -167,3 +172,100 @@ def trim(params, terrain, wind_ned, cond) -> TrimResult:
             "ground contact; use a higher start altitude.", stacklevel=2)
     return TrimResult(state=state, action=action, obs=torch.stack(obs_t),
                       dots=dots)
+
+
+def _batched_base(params, terrain, conds) -> HeliState:
+    """Per-env base states (fields (B,)) from batched trim conditions."""
+    zero = torch.zeros_like(conds["yaw"])
+    s = HeliState(**{f: zero for f in HeliState.FIELDS}).replace(
+        psi=conds["yaw"], psi_mr=conds["psi_mr"], psi_tr=conds["psi_tr"],
+        x=conds["xy"][:, 0], y=conds["xy"][:, 1])
+    touch = terrain_ops.ground_touching_altitude(params, terrain, s.x, s.y)
+    return s.replace(z=-touch - conds["gr_alt"])
+
+
+class BatchedSolve(NamedTuple):
+    result: TrimResult
+    iterations: int            # Newton iterations the slowest env ran
+    sq_residual: torch.Tensor  # (B,) squared residual at each env's result
+
+
+def trim_batched(params, terrain, wind_ned, conds: Mapping, max_iters: int = 50
+                 ) -> BatchedSolve:
+    """Batched Newton trim, one solve per env, on the device of `conds`.
+
+    `conds` maps yaw, yaw_rate, gr_alt, psi_mr, psi_tr to (B,) and ned_vel
+    to (B, 3), xy to (B, 2) arrays (tensors, or numpy arrays for the CPU).
+    The semantics of the JAX package's `trim_batched`: each env iterates
+    while its squared residual exceeds EPS and fewer than `max_iters`
+    iterations ran; a step takes the first of ten halvings that improves,
+    and an env with none stops where it is. Returns the TrimResult (fields
+    with a leading (B,) axis) with the iteration count and each env's final
+    squared residual."""
+    dev = conds["gr_alt"].device if torch.is_tensor(conds["gr_alt"]) else torch.device("cpu")
+    c = {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in conds.items()}
+    terrain = terrain.to(dev)
+    wind3 = tuple(wind_ned.to(dev)[..., i] for i in range(3))
+    n = c["gr_alt"].shape[0]
+    base = _batched_base(params, terrain, c)
+    h_ground = terrain_ops.ground_height(terrain, base.x, base.y)
+
+    def residual(tiles: int, x):
+        """Residuals of x (tiles * B, 16) against the base states tiled."""
+        b = base.map(lambda t: t.repeat(tiles))
+        state, action = apply_x(params, b, x)
+        dots, _, _ = eom.heli_dynamics(
+            params, state, tuple(action[..., i] for i in range(4)), wind3,
+            h_ground.repeat(tiles))
+        return _normalized_dots(params, dots)
+
+    def sq_err(y):
+        """(tiles, B) squared residuals of (tiles * B, 16) residuals."""
+        d = y.view(-1, n, N_VARS) - y_target
+        return (d * d).sum(-1)
+
+    zero = torch.zeros_like(c["yaw_rate"])
+    vel_r = cdiv(c["ned_vel"], params.MR.R)
+    y_target = torch.stack([zero] * 12 + [c["yaw_rate"], vel_r[:, 0], vel_r[:, 1],
+                                          vel_r[:, 2]], dim=-1)
+    uvw0 = cdiv(c["ned_vel"], params.MR.V_TIP)
+    const = lambda v: torch.full_like(zero, v)
+    x = torch.stack([const(0.05), const(0.05), zero, zero, uvw0[:, 0], uvw0[:, 1],
+                     uvw0[:, 2], zero, zero, c["yaw_rate"], const(-0.01), const(0.01),
+                     zero, zero, zero, zero], dim=-1)
+    with torch.no_grad():
+        tol = sq_err(residual(1, x))[0]
+    # one-hot tangents: row k * B + b carries d/dx_k for env b
+    tangents = torch.eye(N_VARS, device=dev).repeat_interleave(n, dim=0)
+    scales = 2.0 ** -torch.arange(10, dtype=torch.float32, device=dev)
+    envs = torch.arange(n, device=dev)
+    iters = 0
+    for _ in range(max_iters):
+        active = tol > EPS
+        if not bool(active.any()):
+            break
+        iters += 1
+        y, jy = torch.func.jvp(lambda xs: residual(N_VARS, xs),
+                               (x.repeat(N_VARS, 1),), (tangents,))
+        with torch.no_grad():
+            jac = jy.view(N_VARS, n, N_VARS).permute(1, 2, 0)     # (B, dy, dx)
+            step, info = torch.linalg.solve_ex(jac, (y[:n] - y_target)[..., None])
+            # a singular Jacobian gives no step, so no improving halving
+            step = torch.where(info[:, None] == 0, step[..., 0], float("nan"))
+            cands = x[None] - scales[:, None, None] * step[None]   # (10, B, 16)
+            tols = sq_err(residual(10, cands.reshape(10 * n, N_VARS)))
+            improving = tols < tol
+            first = improving.to(torch.int32).argmax(0)
+            found = improving.any(0)
+            x_new = torch.where(found[:, None], cands[first, envs], x)
+            tol_new = torch.where(found, tols[first, envs], -1.0)
+            x = torch.where(active[:, None], x_new, x)
+            tol = torch.where(active, tol_new, tol)
+    with torch.no_grad():
+        state, action = apply_x(params, base, x)
+        dots, obs_t, _ = eom.heli_dynamics(
+            params, state, tuple(action[..., i] for i in range(4)), wind3, h_ground)
+        final = sq_err(residual(1, x))[0]
+    return BatchedSolve(TrimResult(state=state, action=action,
+                                   obs=torch.stack(obs_t, dim=-1), dots=dots),
+                        iters, final)

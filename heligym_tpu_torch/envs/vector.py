@@ -12,14 +12,31 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from .env import EnvState, HeliEnv, StepOutput, map_tensors
-from .trim import TrimResult
+from ..ops import dryden
+from ..ops.state import WindState
+from .env import EnvState, HeliEnv, ResetSnapshot, StepOutput, map_tensors
+from .trim import TrimResult, trim_batched
 
 
 def broadcast_state(es: EnvState, n: int) -> EnvState:
     """Tile a single-env EnvState across a leading batch axis (a copy, so the
     envs' tensors never alias)."""
     return map_tensors(lambda x: x.expand((n,) + x.shape).clone(), es)
+
+
+def _assemble_batched(tr: TrimResult, wind_mean: torch.Tensor, n: int) -> EnvState:
+    """EnvState from a batched TrimResult: each env's snapshot is its own
+    trim, the Dryden filters start at zero under the mean wind, and the
+    counters and task ids at 0. No two fields share storage."""
+    dev = tr.obs.device
+    wind0 = WindState.zeros((n,), device=dev)
+    wm = wind_mean.to(dev).expand(n, 3)
+    snap = ResetSnapshot(heli=tr.state, wind=wind0, dots=tr.dots, obs=tr.obs,
+                         wind_ned=wm)
+    zero = torch.zeros(n, dtype=torch.int32, device=dev)
+    es = EnvState(heli=tr.state, wind=wind0, dots=tr.dots, obs=tr.obs, wind_ned=wm,
+                  steps=zero, successed_steps=zero, init=snap, task_id=zero)
+    return map_tensors(lambda x: x.clone(), es)
 
 
 def auto_reset(new_es: EnvState, out: StepOutput) -> Tuple[EnvState, StepOutput]:
@@ -62,6 +79,18 @@ class VectorHeliEnv:
     def reset_from_trim(self, tr: TrimResult) -> Tuple[EnvState, torch.Tensor]:
         es_single, _ = self.env.reset_from_trim(tr)
         es = broadcast_state(es_single, self.num_envs)
+        return es, es.obs
+
+    def reset_randomized(self, generator: torch.Generator, cond_sampler
+                         ) -> Tuple[EnvState, torch.Tensor]:
+        """Per-env initial conditions through the batched Newton trim:
+        `cond_sampler(generator, n)` gives a dict of batched trim conditions
+        (see `trim.trim_batched`) on `generator`'s device; every env's
+        auto-reset returns it to its own trim."""
+        conds = cond_sampler(generator, self.num_envs)
+        wind_mean = dryden.mean_wind(self.env.wind_params, device=self.env.device)
+        tr = trim_batched(self.env.params, self.env.terrain, wind_mean, conds).result
+        es = _assemble_batched(tr, wind_mean, self.num_envs)
         return es, es.obs
 
     def assign_tasks(self, es: EnvState, task_ids) -> EnvState:

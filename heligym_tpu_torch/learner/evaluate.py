@@ -31,14 +31,17 @@ from ..envs import HeliEnv, VectorHeliEnv
 from ..envs.tasks import MixedTask
 from ..ops.cuda import fused_step as fs
 from .ppo import PPOConfig, PPOLearner, TrainState
-from .train import TASKS, _parse_target
+from .train import TASKS, _band, _parse_target, make_alt_grid_sampler
 
 
 def make_evaluator(env: HeliEnv, learner: PPOLearner, *, episodes: int,
                    steps: int, stochastic: bool = False,
-                   trim_cond=None, task_ids=None):
+                   trim_cond=None, task_ids=None, cond_sampler=None):
     """Build a reusable evaluator `fn(ts, generator) -> stats dict`;
-    `generator` is a `torch.Generator` on the env's device."""
+    `generator` is a `torch.Generator` on the env's device. Every episode
+    starts from the trim of `trim_cond`, or with `cond_sampler` (see
+    `train.make_alt_grid_sampler`) from its own start condition through the
+    batched Newton trim."""
     venv = VectorHeliEnv(env, episodes, auto_reset=False)
     dev = env.device
     succ_required = float(env.success_steps_required)
@@ -73,7 +76,10 @@ def make_evaluator(env: HeliEnv, learner: PPOLearner, *, episodes: int,
         return {"succ": succ, "fail": fail, "end": end, "reward": reward}
 
     def evaluator(ts: TrainState, generator: torch.Generator) -> dict:
-        es0, _ = venv.reset(trim_cond)
+        if cond_sampler is not None:
+            es0, _ = venv.reset_randomized(generator, cond_sampler)
+        else:
+            es0, _ = venv.reset(trim_cond)
         if task_ids is not None:
             es0 = venv.assign_tasks(es0, task_ids)
         stats = ts.obs_stats if learner.config.obs_norm else None
@@ -107,11 +113,12 @@ def make_evaluator(env: HeliEnv, learner: PPOLearner, *, episodes: int,
 
 def evaluate(env: HeliEnv, learner: PPOLearner, ts: TrainState, *,
              episodes: int, steps: int, generator: torch.Generator,
-             stochastic: bool = False, trim_cond=None, task_ids=None) -> dict:
+             stochastic: bool = False, trim_cond=None, task_ids=None,
+             cond_sampler=None) -> dict:
     """One-shot wrapper over `make_evaluator` (CLI entry point)."""
     return make_evaluator(env, learner, episodes=episodes, steps=steps,
                           stochastic=stochastic, trim_cond=trim_cond,
-                          task_ids=task_ids)(ts, generator)
+                          task_ids=task_ids, cond_sampler=cond_sampler)(ts, generator)
 
 
 #: the standard committed-artifact eval protocol (examples/*_eval.json):
@@ -125,7 +132,7 @@ def seeded_generator(env: HeliEnv, seed: int) -> torch.Generator:
 
 def multi_seed_evaluate(env: HeliEnv, learner: PPOLearner, ts: TrainState, *,
                         episodes: int, steps: int, seeds,
-                        trim_cond=None, task_ids=None) -> dict:
+                        trim_cond=None, task_ids=None, cond_sampler=None) -> dict:
     """Run the evaluator over `seeds` for BOTH the deterministic (mean) and
     the stochastic policy; return per-seed results plus aggregates
     (mean/std/min/max over seeds of the headline fractions — the cross-seed
@@ -134,7 +141,7 @@ def multi_seed_evaluate(env: HeliEnv, learner: PPOLearner, ts: TrainState, *,
     for policy_name, stochastic in (("mean", False), ("stochastic", True)):
         ev = make_evaluator(env, learner, episodes=episodes, steps=steps,
                             stochastic=stochastic, trim_cond=trim_cond,
-                            task_ids=task_ids)
+                            task_ids=task_ids, cond_sampler=cond_sampler)
         for seed in seeds:
             r = ev(ts, seeded_generator(env, seed))
             per_seed[policy_name].append({"seed": int(seed), **r})
@@ -209,6 +216,11 @@ def main(argv=None):
     ap.add_argument("--start-alt", type=float, default=None,
                     help="initial trim altitude above ground [ft] "
                          "(match training)")
+    ap.add_argument("--start-band", type=str, default=None, metavar="LO:HI",
+                    help="evaluate on a deterministic linspace(LO, HI) "
+                         "start-altitude grid (one altitude per episode, "
+                         "batched Newton trim) instead of a single "
+                         "--start-alt — reports band-wide generalization")
     ap.add_argument("--max-time", type=float, default=None,
                     help="episode wall [s] (match training)")
     ap.add_argument("--turb-level", type=int, default=None,
@@ -227,6 +239,8 @@ def main(argv=None):
                          "episodes). Overrides --seed/--stochastic.")
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args(argv)
+    if args.start_band and args.start_alt is not None:
+        ap.error("--start-band and --start-alt are mutually exclusive")
 
     env, n_tasks = build_env(args.task, args.tasks, args.target, args.max_time,
                              args.turb_level, "cpu" if args.cpu else None)
@@ -242,11 +256,13 @@ def main(argv=None):
     steps = args.steps or env.time_up_steps + 3
     trim_cond = ({"gr_alt": args.start_alt}
                  if args.start_alt is not None else None)
+    cond_sampler = make_alt_grid_sampler(*_band(args.start_band)) if args.start_band else None
     if args.seeds:
         seeds = [int(s) for s in args.seeds.split(",")]
         result = multi_seed_evaluate(
             env, learner, ts, episodes=args.episodes, steps=steps,
-            seeds=seeds, trim_cond=trim_cond, task_ids=task_ids)
+            seeds=seeds, trim_cond=trim_cond, task_ids=task_ids,
+            cond_sampler=cond_sampler)
         result = {"checkpoint": args.checkpoint,
                   "turb_level": args.turb_level, **result}
     else:
@@ -254,7 +270,7 @@ def main(argv=None):
             env, learner, ts, episodes=args.episodes, steps=steps,
             generator=seeded_generator(env, args.seed),
             stochastic=args.stochastic, trim_cond=trim_cond,
-            task_ids=task_ids)
+            task_ids=task_ids, cond_sampler=cond_sampler)
         result = {"checkpoint": args.checkpoint,
                   "policy": "stochastic" if args.stochastic else "mean",
                   "seed": args.seed, "turb_level": args.turb_level, **result}

@@ -213,22 +213,34 @@ class PPOLearner:
                            generator=generator).to(self.env.device)
 
     def init(self, generator: Optional[torch.Generator] = None,
-             trim_cond: Optional[dict] = None, task_ids=None) -> TrainState:
+             trim_cond: Optional[dict] = None, task_ids=None,
+             cond_sampler=None) -> TrainState:
         """Fresh network, optimizer state and env farm. `generator` (a CPU
-        generator; None: an unseeded one) seeds the network and then the
-        train state's own generator on the env's device. `task_ids`
+        generator; None: an unseeded one) seeds the network, then the train
+        state's own generator on the env's device, then (with
+        `cond_sampler`) the farm's start conditions. `cond_sampler(generator,
+        n)` switches the farm to per-env initial conditions through the
+        batched Newton trim (`VectorHeliEnv.reset_randomized`); `task_ids`
         (num_envs,) assigns MixedTask sub-tasks per env."""
-        es, _ = self.venv.reset(trim_cond)
+        net = self.make_network(generator)
+        dev = self.env.device
+
+        def device_generator():
+            gen = torch.Generator(device=dev)
+            if generator is None:
+                gen.seed()
+            else:
+                gen.manual_seed(int(torch.randint(0, 2 ** 62, (), generator=generator)))
+            return gen
+        gen = device_generator()
+        if cond_sampler is not None:
+            es, _ = self.venv.reset_randomized(device_generator(), cond_sampler)
+        else:
+            es, _ = self.venv.reset(trim_cond)
         if task_ids is not None:
             es = self.venv.assign_tasks(es, task_ids)
-        net = self.make_network(generator)
-        gen = torch.Generator(device=self.env.device)
-        if generator is None:
-            gen.seed()
-        else:
-            gen.manual_seed(int(torch.randint(0, 2 ** 62, (), generator=generator)))
         return TrainState(params=net, env_state=es, update_count=0,
-                          obs_stats=ObsStats.init(self.env.device),
+                          obs_stats=ObsStats.init(dev),
                           opt_state=adam_init(self.param_list(net)), generator=gen)
 
     @staticmethod
@@ -722,29 +734,42 @@ class PPOLearner:
 
     # ----------------------------------------------------------- training
     def train(self, generator: Optional[torch.Generator] = None, num_updates: int = 1,
-              log_every: int = 10, trim_cond: Optional[dict] = None, task_ids=None,
+              log_every: int = 10, trim_cond: Optional[dict] = None,
+              cond_sampler=None, task_ids=None,
               checkpoint_path: Optional[str] = None, checkpoint_every: int = 100,
               resume_from: Optional[str] = None, fresh_farm: bool = False,
               resume_num_envs: Optional[int] = None, reset_schedules: bool = False,
-              set_log_std: Optional[float] = None):
+              set_log_std: Optional[float] = None, eval_every: int = 0,
+              eval_episodes: int = 64, eval_env: Optional[HeliEnv] = None,
+              eval_cond_sampler=None):
         """`num_updates` train steps from a fresh state (`init(generator,
-        trim_cond, task_ids)`) or a checkpoint. Returns (state, history of
-        the logged metrics).
+        trim_cond, task_ids, cond_sampler)`) or a checkpoint. Returns (state,
+        history of the logged metrics).
 
         `resume_from`: a TrainState checkpoint of this configuration; a
         same-size resume restores everything, farm included (`fresh_farm`:
-        keep the fresh farm and generator instead). `resume_num_envs`: the
-        checkpoint's farm size when it differs from `num_envs` (scale-up
-        resume): the parameters, Adam's state and the observation
-        statistics are transplanted, the schedules restart.
-        `reset_schedules`: on a same-size resume, restart the schedules
-        (update_count 0). `set_log_std`: overwrite the restored policy's
-        learned log-std. With `checkpoint_path`, the state is saved every
-        `checkpoint_every` updates and at the end, and to
-        `checkpoint_path + ".best.npz"` whenever the rollout's
-        `success_ep_frac` beats its best, checked every update. (The JAX
-        loop's periodic evaluation, `eval_every`, is not ported yet.)"""
-        ts = self.init(generator, trim_cond, task_ids)
+        keep the fresh farm and generator instead, as a new start-condition
+        curriculum needs). `resume_num_envs`: the checkpoint's farm size when
+        it differs from `num_envs` (scale-up resume): the parameters, Adam's
+        state and the observation statistics are transplanted, the schedules
+        restart. `reset_schedules`: on a same-size resume, restart the
+        schedules (update_count 0). `set_log_std`: overwrite the restored
+        policy's learned log-std.
+
+        `eval_every`: every N updates (and after the last) run the
+        deterministic evaluator (`evaluate.make_evaluator`: `eval_episodes`
+        fresh episodes to their first termination, in `eval_env` or the
+        training env, from `eval_cond_sampler`'s per-episode starts or
+        `trim_cond`'s) and best-track on its success fraction, the minimum
+        over sub-tasks on a MixedTask, instead of the rollout's
+        selection-biased `success_ep_frac`. Every evaluation draws the same
+        noise: a generator seeded with 1234 afresh each time.
+
+        With `checkpoint_path`, the state is saved every `checkpoint_every`
+        updates and at the end, and to `checkpoint_path + ".best.npz"`
+        whenever the tracked success beats its best, checked every update
+        (or every evaluation)."""
+        ts = self.init(generator, trim_cond, task_ids, cond_sampler=cond_sampler)
         if resume_from and resume_num_envs and resume_num_envs != self.config.num_envs:
             small = self.restore(resume_from, farm_size=resume_num_envs)
             ts = ts.replace(params=small.params, opt_state=small.opt_state,
@@ -760,13 +785,47 @@ class PPOLearner:
         if resume_from and set_log_std is not None:
             with torch.no_grad():
                 ts.params.log_std.fill_(set_log_std)
+        evaluator = None
+        if eval_every:
+            from .evaluate import make_evaluator
+            eval_tids = (np.arange(eval_episodes) % (int(np.max(task_ids)) + 1)
+                         if task_ids is not None else None)
+            e_env = eval_env or self.env
+            evaluator = make_evaluator(
+                e_env, self, episodes=eval_episodes, steps=e_env.time_up_steps + 3,
+                stochastic=False, trim_cond=trim_cond, task_ids=eval_tids,
+                cond_sampler=eval_cond_sampler)
         history = []
         best_succ = -1.0
         for i in range(num_updates):
             ts, metrics = self.train_step(ts)
+            if evaluator is not None and ((i + 1) % eval_every == 0
+                                          or i == num_updates - 1):
+                # the same noise in every evaluation, so that they compare
+                ev = evaluator(ts, torch.Generator(device=e_env.device).manual_seed(1234))
+                metrics = dict(metrics)
+                metrics.update({f"eval_{k}": v for k, v in ev.items()
+                                if k != "episodes"})
+                s = ev["success_frac"]
+                # MixedTask: select on the worst sub-task, not the mean
+                per_task = [v for k, v in sorted(ev.items())
+                            if k.startswith("success_frac_t")]
+                if per_task:
+                    s = min(per_task)
+                    print(f"  eval @ update {i + 1}: det per-task "
+                          f"{[round(v, 3) for v in per_task]} "
+                          f"min={s:.3f} fail={ev['fail_frac']:.3f}", flush=True)
+                else:
+                    print(f"  eval @ update {i + 1}: det success={s:.3f} "
+                          f"fail={ev['fail_frac']:.3f}", flush=True)
+                if checkpoint_path and s > best_succ:
+                    best_succ = s
+                    self.save(checkpoint_path + ".best.npz", ts)
+                    print(f"  saved best at update {i + 1} "
+                          f"(eval success={s:.3f})", flush=True)
             # keep the peak-success policy, checked every update: PPO on an
             # unstable plant can unlearn a succeeding policy late in a run
-            if checkpoint_path:
+            if checkpoint_path and evaluator is None:
                 s = float(metrics["success_ep_frac"])
                 if s > max(best_succ, 0.0):
                     best_succ = s

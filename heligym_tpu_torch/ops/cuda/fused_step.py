@@ -40,6 +40,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+import gc
 import math
 from typing import Callable, Optional, Tuple
 
@@ -720,13 +721,23 @@ def build_fused_policy_rollout(env: HeliEnv, num_envs: int, steps: int,
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
-        with torch.cuda.graph(graph):
-            args = [launch_args(env, g["carry"], g["init"], g["act"][t],
-                                g["eta"][t], auto_reset, g["carry"], g["xbuf"][t])
-                    for t in range(steps)]
-            g["aux"] = loop(g["carry"], g["init"], g["eta"], g["params"], generator,
-                            g["xbuf"], g["obs"], g["act"],
-                            lambda t: _raise_on(fn(*args[t]), "fused_step"))
+        # A dead graph (an old collector's, in a reference cycle) that the
+        # cyclic collector frees mid-capture invalidates the capture: free
+        # such cycles now and keep the collector off until the capture ends.
+        gc.collect()
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                args = [launch_args(env, g["carry"], g["init"], g["act"][t],
+                                    g["eta"][t], auto_reset, g["carry"], g["xbuf"][t])
+                        for t in range(steps)]
+                g["aux"] = loop(g["carry"], g["init"], g["eta"], g["params"],
+                                generator, g["xbuf"], g["obs"], g["act"],
+                                lambda t: _raise_on(fn(*args[t]), "fused_step"))
+        finally:
+            if gc_was_on:
+                gc.enable()
         g["graph"] = graph
         return g
 

@@ -16,6 +16,7 @@ from heligym_tpu_torch.envs import (ForwardFlightTask, HeliEnv, HoverTask,
                                     LandingTask, MixedTask, ObliqueFlightTask,
                                     SlalomTask, TurningFlightTask, VectorHeliEnv)
 from heligym_tpu_torch.ops.cuda import fused_step as fs, gather
+from torch_trim_cache import fresh_trim_cache  # noqa: F401
 
 TASK_NAMES = ("hover", "forward", "turning", "slalom", "landing",
               "landing_touch", "oblique", "mixed4", "mixed7", "hover_heavy")
@@ -359,3 +360,120 @@ def test_graph_replay_after_update_equals_eager():
             lin.weight = torch.nn.Parameter(lin.weight * 1.01)
             lin.bias = torch.nn.Parameter(lin.bias + 0.01)
     replay_vs_eager(ts)
+
+
+@pytest.mark.cuda
+def test_capture_survives_a_dead_collector_in_a_cycle(monkeypatch):
+    """A learner whose collector holds a captured graph, dropped while it
+    sits in a reference cycle, is freed only by Python's cyclic collector;
+    a collection inside the next capture would release the dead graph
+    there and invalidate the capture. Here every capture begins with a
+    collection whenever the cyclic collector is on, as an automatic one
+    may run at any allocation: a new learner's graphed collection still
+    captures, equals its eager loop bit for bit, and the old learner is
+    gone."""
+    _need_card()
+    import gc
+    import weakref
+    from heligym_tpu_torch.learner import PPOConfig, PPOLearner
+    from heligym_tpu_torch.learner.evaluate import build_env
+    env, _ = build_env("hover", None, "sea_alt=start")
+    cfg = PPOConfig(num_envs=256, rollout_steps=8)
+    old = PPOLearner(env, cfg)
+    old_ts = old.init(torch.Generator().manual_seed(0))
+    old.collect(old_ts, old_ts.generator)            # captures the old graph
+    dead = weakref.ref(old)
+    cycle = [old, old_ts]
+    cycle.append(cycle)
+    del old, old_ts, cycle
+    assert dead() is not None          # only the cyclic collector frees it
+
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def begin_then_collect(self, *args, **kwargs):
+        begin(self, *args, **kwargs)
+        if gc.isenabled():
+            gc.collect()
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin", begin_then_collect)
+
+    learner = PPOLearner(env, cfg)
+    ts = learner.init(torch.Generator().manual_seed(1))
+    state = ts.generator.get_state()
+    captures = fs.calls["capture"]
+    _, tr_g = learner.collect(ts, ts.generator)
+    assert fs.calls["capture"] == captures + 1
+    assert dead() is None
+    g2 = torch.Generator(device="cuda")
+    g2.set_state(state)
+    _, tr_e = learner.collect(ts, g2, graphed=False)
+    for f in ("obs", "action", "log_prob", "value", "reward", "terminated"):
+        assert _bits_equal(getattr(tr_g, f), getattr(tr_e, f)), f
+
+
+@pytest.mark.cuda
+def test_trim_batched_card_equals_cpu():
+    """The batched Newton trim on the card converges for a band of start
+    altitudes (6-55 ft, the gear near contact at the low edge) and for
+    forward-flight conditions, and agrees with the same solve on the CPU:
+    state over max(|CPU|, 1) and action within 5e-3."""
+    _need_card()
+    from heligym_tpu_torch.envs.trim import trim_batched
+    from heligym_tpu_torch.learner.train import make_alt_band_sampler
+    from heligym_tpu_torch.ops import dryden
+    from heligym_tpu_torch.utils.constants import EPS
+    env = HeliEnv.build("aw109", task=HoverTask())
+    conds = make_alt_band_sampler(6.0, 55.0)(torch.Generator(device="cuda").manual_seed(1),
+                                             256)
+    conds["ned_vel"][:3] = torch.tensor([[0.0, 0.0, 0.0], [50.0, 0.0, 0.0],
+                                         [100.0, 10.0, 0.0]], device="cuda")
+    conds["gr_alt"][:3] = torch.tensor([100.0, 1000.0, 3000.0], device="cuda")
+    wind = dryden.mean_wind(env.wind_params, device="cuda")
+    card = trim_batched(env.params, env.terrain, wind, conds)
+    cpu = trim_batched(env.params, env.terrain.to("cpu"), wind.cpu(),
+                       {k: v.cpu() for k, v in conds.items()})
+    assert card.result.action.is_cuda
+    assert bool((card.sq_residual < EPS).all()) and card.iterations < 50
+    ref = cpu.result.state.flatten()
+    scale = ref.abs().clamp(min=1.0)
+    torch.testing.assert_close(card.result.state.flatten().cpu() / scale, ref / scale,
+                               rtol=0, atol=5e-3)
+    torch.testing.assert_close(card.result.action.cpu(), cpu.result.action, rtol=0,
+                               atol=5e-3)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_from_randomized_farm():
+    """A farm from `reset_randomized` under the default sampler (headings,
+    speeds, altitudes and x/y over +-3000 ft differ per env): the kernel
+    equals its plain version bit for bit over 30 steps in which a 0.3 s
+    episode wall resets every env, and each env that ends gets its own
+    snapshot's rows back."""
+    _need_card()
+    from heligym_tpu_torch.envs.trim import trim_batched
+    from heligym_tpu_torch.learner.train import default_cond_sampler
+    from heligym_tpu_torch.ops import dryden
+    env = HeliEnv.build("aw109", task=HoverTask()).replace(max_time=0.3)
+    n = 2048
+    gen = lambda: torch.Generator(device="cuda").manual_seed(11)
+    es, _ = VectorHeliEnv(env, n).reset_randomized(gen(), default_cond_sampler)
+    tr = trim_batched(env.params, env.terrain,
+                      dryden.mean_wind(env.wind_params, device="cuda"),
+                      default_cond_sampler(gen(), n)).result
+    assert torch.equal(es.init.heli.flatten(), tr.state.flatten())
+    rng = np.random.default_rng(4)
+    act = tr.action.cpu().numpy() + 0.02 * rng.standard_normal((30, n, 4))
+    eta = rng.standard_normal((30, 3, n)) * 50 ** 0.5
+    act = torch.from_numpy(act.astype(np.float32)).cuda()
+    eta = torch.from_numpy(eta.astype(np.float32)).cuda()
+    carry_k, init = fs.pack(es)
+    carry_p = carry_k.clone()
+    ended_once = torch.zeros(n, dtype=torch.bool, device="cuda")
+    for t in range(30):
+        carry_k, x_k = fs.fused_step(env, carry_k, init, act[t], eta[t])
+        with torch.no_grad():
+            carry_p, x_p = fs.fused_step_plain(env, carry_p, init, act[t], eta[t])
+        assert _bits_equal(carry_k, carry_p) and _bits_equal(x_k, x_p), t
+        ended = (x_k[fs.CDONE] != 0) | (x_k[fs.CTRUNC] != 0)
+        assert _bits_equal(carry_k[:fs.SROWS][:, ended], init[:fs.SROWS][:, ended])
+        ended_once |= ended
+    assert bool(ended_once.all())

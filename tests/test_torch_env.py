@@ -18,6 +18,7 @@ from heligym_tpu_torch.envs.trim import trim
 from heligym_tpu_torch.ops import dryden
 from heligym_tpu_torch.ops import terrain as terrain_ops
 from heligym_tpu_torch.ops.state import HeliState, WindState
+from torch_trim_cache import fresh_trim_cache  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -40,7 +41,7 @@ def test_trim_matches_fixture(fixtures, env):
     f = fixtures("trim")
     for i in range(int(f["n"])):
         cond = _default_cond(ast.literal_eval(str(f[f"cond{i}_json"])))
-        tr = env.trim_result(cond)
+        tr = env.trim_result(cond, use_cache=False)
         ours = tr.state.flatten().numpy()
         ref = f[f"cond{i}_state"]
         scale = np.maximum(np.abs(ref), 1.0)
@@ -51,7 +52,7 @@ def test_trim_matches_fixture(fixtures, env):
 
 
 def test_trim_matches_jax_hover_trim(env, hover_trim):
-    tr = env.trim_result()
+    tr = env.trim_result(use_cache=False)
     for ours, ref in ((tr.state.flatten(), hover_trim.state.flatten()),
                       (tr.dots.flatten(), hover_trim.dots.flatten()),
                       (tr.obs, hover_trim.obs)):

@@ -24,6 +24,7 @@ from heligym_tpu_torch.envs import HeliEnv, HoverTask, Task, VectorHeliEnv
 from heligym_tpu_torch.ops.cuda import fused_step as fs
 
 from test_torch_tasks import compiled
+from torch_trim_cache import fresh_trim_cache  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B = 128

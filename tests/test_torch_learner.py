@@ -40,6 +40,7 @@ from heligym_tpu_torch.utils.checkpoint import (TreedefError, load_policy_npz,
                                                 parse_treedef)
 
 from test_torch_tasks import compiled, jax_state_to_numpy, make_task
+from torch_trim_cache import fresh_trim_cache  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = os.path.join(REPO, "examples")

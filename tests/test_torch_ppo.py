@@ -43,6 +43,7 @@ from heligym_tpu_torch.learner import ObsStats, PPOConfig, PPOLearner, Transitio
 from heligym_tpu_torch.learner import optim
 
 from test_torch_learner import flax_params
+from torch_trim_cache import fresh_trim_cache  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T, B, HIDDEN, MB = 8, 16, (16, 16), 4

@@ -26,6 +26,7 @@ from heligym_tpu_torch.envs.env import map_tensors
 from heligym_tpu_torch.models import load_params
 from heligym_tpu_torch.ops.cuda import fused_step as fs
 from heligym_tpu_torch.ops.state import HeliState
+from torch_trim_cache import fresh_trim_cache  # noqa: F401
 
 SINGLE = ("hover", "forward", "turning", "slalom", "landing", "landing_touch",
           "oblique")
