@@ -49,7 +49,11 @@ failure exits non-zero:
      forward-flight conditions, held against the same solve on the CPU; a
      2048-env farm from `reset_randomized` through the kernel against its
      plain version bit for bit (30 steps and a 300-step dive whose ended
-     envs must get their own snapshots back); the graphed collector against
+     envs must get their own snapshots back), then the same without
+     auto-reset (`auto_reset=False`, the mode of every evaluator and
+     collector; in the dive every env ends and integrates on past its end),
+     every carry and collect value at every step equal bit for bit; the
+     graphed collector against
      the eager loop from that farm with examples/landing_band_policy.npz;
      then `python -m heligym_tpu_torch.learner.train` (its `main`) for 2
      updates of the committed examples/landing_band_training_metrics.json
@@ -58,12 +62,30 @@ failure exits non-zero:
   6. the evaluator: `multi_seed_evaluate` of the committed multitask4,
      hover4k and landing_band (on the 6-55 ft start grid) policies beside
      their committed scores;
+  6b. distillation, each run at the committed widths with its rounds cut,
+     timed on the host clock to a synchronize: (a) the scripted expert
+     (`tools/torch_tune_scripted.py`, 3 seeds of the 128-point 6-100 ft
+     grid, mean success at least 0.89); (b) `python -m
+     heligym_tpu_torch.learner.distill` (its `main`) from
+     examples/landing_band_policy.npz at the committed stage-1 widths,
+     1 round: round 0 within 0.06 of the committed evaluation, steps
+     cloned, a finite loss, the critic and log_std bit-equal, `.best.npz`
+     readable; (c) `tools/torch_distill_scripted.py` from
+     examples/landing100_policy.npz, 1 BC and 1 DAgger round: round 0
+     within 0.06 of the committed evaluation, the expert's acting success at
+     least 0.80, the DAgger weights on every step before each env's end;
+     (d) `tools/torch_distill_multitask.py` on the committed multitask4
+     config with 1 DAgger round: round 0 success at least 0.88; (e)
+     `tools/torch_distill_hybrid.py`, 1 round, the landing_band policy as
+     both experts (mechanics only). Every collection and evaluation step
+     must run on the step kernel, and each run must time exactly the fits
+     and evaluations its rounds make;
   7. numbers: the step kernel's device time per step, one-step and T-step
      launches, beside their bounds and the plain version; the block sizes
      at 4096 and 16384 envs, each timed from a fresh carry that every
      launch reads and none overwrites, its outputs held bit for bit against
      the kept block's; one JSON line describing each kernel.
-Before each path (3, the bench, 4, 5, 5b, 5c, 6) every kernel's counts are set
+Before each path (3, the bench, 4, 5, 5b, 5c, 6, each run of 6b) every kernel's counts are set
 to 0, and read just after; a path whose kernel never ran fails the script. The step
 kernel's count is of env steps it ran: a T-step launch or a graph replay of
 T steps counts T, a graph capture 1 (its warm-up launch); the profiled
@@ -108,6 +130,10 @@ BAND_CPU_ENVS = 64             # band envs whose trim is repeated on the CPU
 TRIM_TOL = 5e-3                # card vs CPU trim: state over max(|CPU|, 1), action
 CLI_MARGIN = 0.06              # one fixed-noise evaluation after 1-2 updates at lr 3e-5
 LANDING_BAND = "landing_band"
+DISTILL_MARGIN = 0.06          # round 0: one fixed-noise evaluation of a committed policy
+TUNE_GATE = 0.89               # the scripted expert: documented 0.926 +- 0.01 on 3 x 128
+BC_ACTING_GATE = 0.80          # the expert's acting success in a BC round (committed 0.855-0.874)
+MULTITASK_GATE = 0.88          # multitask4's round 0 (committed 0.9375)
 # the committed policies scored in phase 6; `heads` are the gated ones
 EVALS = {
     "multitask4": dict(tasks=",".join(MIXED4), task="hover",
@@ -247,25 +273,34 @@ def main():
         return int((a.contiguous().view(torch.int32)
                     != b.contiguous().view(torch.int32)).sum())
 
-    def compare(env, es, tr, steps, dive):
+    def nan_bit_mismatches(a, b):
+        """Values whose bits differ; a NaN facing a NaN counts equal."""
+        both = torch.isnan(a) & torch.isnan(b)
+        return int(((a.contiguous().view(torch.int32) != b.contiguous().view(torch.int32))
+                    & ~both).sum())
+
+    def compare(env, es, tr, steps, dive, auto_reset=True):
         """Kernel and plain version side by side from `es`; the nominal run
         asserts the parity tolerances at every step, the dive only compares
         the discrete streams (a NaN reward equals a NaN reward). Then the
         same inputs through one T-step launch, against the one-step
-        launches. On the step an env ends, the kernel must have put back its
-        own snapshot's rows."""
+        launches. With `auto_reset`, on the step an env ends, the kernel
+        must have put back its own snapshot's rows. `bits` counts the
+        values of the carry and the collect block, over every step, whose
+        bits differ between kernel and plain."""
         act, eta = inputs(tr.action, es.steps.shape[0], steps, dive)
         ck, init = fs.pack(es)
         c0, cp = ck.clone(), ck.clone()
         err = {"reward": 0.0, "obs": 0.0, "state": 0.0, "one_launch": 0.0,
-               "resets": 0, "snapshot_bits": 0}
+               "resets": 0, "snapshot_bits": 0, "bits": 0}
         close = lambda a, b, rtol, atol: torch.testing.assert_close(
             a, b, rtol=rtol, atol=atol, equal_nan=True)
         xs_k, dones_p = [], []
+        first_end = torch.full((ck.shape[1],), -1, dtype=torch.int64, device=dev)
         with torch.no_grad():
             for t in range(steps):
-                ck, xk = fs.fused_step(env, ck, init, act[t], eta[t])
-                cp, xp = fs.fused_step_plain(env, cp, init, act[t], eta[t])
+                ck, xk = fs.fused_step(env, ck, init, act[t], eta[t], auto_reset)
+                cp, xp = fs.fused_step_plain(env, cp, init, act[t], eta[t], auto_reset)
                 if t == 0:
                     err["one_launch"] = max(diff(ck, cp), diff(xk, xp))
                     if not torch.equal(torch.isnan(xk), torch.isnan(xp)):
@@ -275,10 +310,13 @@ def main():
                                  diff(xk[fs.COBS0:fs.CSUCC], xp[fs.COBS0:fs.CSUCC]),
                                  diff(xk[fs.CFINAL0:], xp[fs.CFINAL0:]))
                 err["state"] = max(err["state"], diff(ck[:fs.SROWS], cp[:fs.SROWS]))
+                err["bits"] += nan_bit_mismatches(ck, cp) + nan_bit_mismatches(xk, xp)
                 ended = (xk[fs.CDONE] != 0) | (xk[fs.CTRUNC] != 0)
                 err["resets"] += int(ended.sum())
-                err["snapshot_bits"] += bit_mismatches(ck[:fs.SROWS][:, ended],
-                                                       init[:fs.SROWS][:, ended])
+                first_end = torch.where((first_end < 0) & ended, t, first_end)
+                if auto_reset:
+                    err["snapshot_bits"] += bit_mismatches(ck[:fs.SROWS][:, ended],
+                                                           init[:fs.SROWS][:, ended])
                 if not dive:
                     close(xk[fs.CREW], xp[fs.CREW], 0, TOL["reward_atol"])
                     for lo, hi in ((fs.COBS0, fs.CSUCC), (fs.CFINAL0, fs.XROWS)):
@@ -294,7 +332,11 @@ def main():
                 if not torch.equal(ck[fs.STEPS:], cp[fs.STEPS:]):
                     fail(f"counters differ after {steps} steps")
             xs_k = torch.stack(xs_k)
-            c, x = fs.fused_rollout(env, c0.clone(), init, act, eta)
+            if not auto_reset:
+                err["envs_ended"] = int((first_end >= 0).sum())
+                err["steps_past_end"] = int(torch.where(first_end >= 0, steps - 1 - first_end,
+                                                        0).sum())
+            c, x = fs.fused_rollout(env, c0.clone(), init, act, eta, auto_reset)
             forms = {"rollout": {
                 "max_abs_err": max(diff(c, ck), diff(x, xs_k)),
                 "bits_differing": bit_mismatches(c, ck) + bit_mismatches(x, xs_k),
@@ -338,6 +380,37 @@ def main():
             fail(f"{label}: dive counters differ between kernel and plain")
         if not bool((ck[fs.STEPS] < 300).all()):
             fail(f"{label}: dive counters did not reset")
+        return out
+
+    def check_no_reset(label, env, es, tr):
+        """The kernel against its plain version with auto_reset=False, the
+        mode of every evaluator and collector: 30 nominal steps, then the
+        300-step dive, in which every env ends and integrates on past its
+        end. Every value of the carry and the collect block at every step
+        must equal the plain version's bit for bit (a NaN facing a NaN
+        counts equal), and the T-step launch the one-step launches."""
+        out = {}
+        for steps, dive in ((30, False), (300, True)):
+            err, dk, dp, ck, cp, forms = compare(env, es, tr, steps, dive,
+                                                 auto_reset=False)
+            key = f"{'dive' if dive else 'nominal'}_{steps}"
+            past = err["steps_past_end"]
+            mismatch = int((dk != dp).sum())
+            counters = torch.equal(ck[fs.STEPS:], cp[fs.STEPS:])
+            out[key] = {**err, "done_mismatch": mismatch, "counters_equal": counters,
+                        "forms": forms}
+            print(f"[check] {label}, auto_reset=False: kernel vs plain, {steps} steps "
+                  f"at {es.steps.shape[0]} envs{' (dive)' if dive else ''}: bits "
+                  f"differing in carry and collect {err['bits']}, max |err| reward "
+                  f"{err['reward']:.3e} obs {err['obs']:.3e} state {err['state']:.3e}; "
+                  f"{err['envs_ended']} envs ended, {past} env-steps past their end, "
+                  f"mismatched done flags {mismatch}, counters equal {counters}")
+            check_forms(f"{label}, auto_reset=False{' dive' if dive else ''}", steps, forms)
+            if err["bits"] or mismatch or not counters:
+                fail(f"{label}, auto_reset=False: the kernel differs from its plain "
+                     f"version over {steps} steps")
+            if dive and past == 0:
+                fail(f"{label}, auto_reset=False: no env ran past its end in the dive")
         return out
 
     env = HeliEnv.build("aw109", task=HoverTask(), device=dev)
@@ -817,6 +890,9 @@ def main():
     es, _ = VectorHeliEnv(env_k, BAND_ENVS).reset_randomized(
         torch.Generator(device=dev).manual_seed(7), sampler)
     farm_actions = types.SimpleNamespace(action=solve.result.action[:BAND_ENVS])
+    # launches that hold the kernel against its plain version are not the
+    # path's: its counts are put back after them
+    saved, saved_calls = fs.launches, dict(fs.calls)
     band["kernel"] = check_task("landing band farm", env_k, es, farm_actions, (30,))
     for k, res in band["kernel"].items():
         worst = max(res["reward"], res["obs"], res["state"], res["one_launch"])
@@ -827,6 +903,12 @@ def main():
         fail("landing band farm: no env reset in the dive")
     max_abs_err = max(max_abs_err, *(band["kernel"]["nominal_30"][k]
                                      for k in ("reward", "obs", "state")))
+    # the same farm without auto-reset, as every evaluator and collector
+    # steps it
+    band["kernel_no_reset"] = check_no_reset("landing band farm", env_k, es,
+                                             farm_actions)
+    fs.launches = saved
+    fs.calls.update(saved_calls)
 
     # the graphed collector from that farm, with the committed band policy
     band_learner = PPOLearner(env, PPOConfig(num_envs=BAND_ENVS, rollout_steps=ROLLOUT_STEPS))
@@ -973,6 +1055,9 @@ def main():
                 fail(f"evaluation {name}: {k} {got:.4f} lies more than "
                      f"{EVAL_MARGIN} below the committed {want:.4f}")
 
+    # ---- 6b. distillation -------------------------------------------------------
+    report["distillation"], distill_launches = distillation(here, load_tool, zero_counts)
+
     # ---- 7. numbers -------------------------------------------------------------
     def bound(n, ops_per_env, steps, ended_frac, mixed, held):
         """Least time per step of `steps` env steps of `n` envs in one launch:
@@ -1101,7 +1186,8 @@ def main():
                                      "collector": coll_launches,
                                      "train": train_launches,
                                      "randomized": band_launches,
-                                     "evaluation": eval_launches},
+                                     "evaluation": eval_launches,
+                                     "distill": distill_launches},
                 "max_abs_err": max_abs_err, "ms": nb["kernel_ms"],
                 "plain_ms": nb["plain_ms"], "bound_ms": nb["bound_ms"],
                 "bound_by": nb["bound_by"], "library_ms": None,
@@ -1140,6 +1226,261 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def distillation(here, load_tool, zero_counts):
+    """Phase 6b: the five runs of the distillation path. Returns (report,
+    step-kernel steps over all runs)."""
+    import torch
+    from heligym_tpu_torch.envs import HeliEnv, LandingTask
+    from heligym_tpu_torch.learner import PPOConfig, PPOLearner
+    from heligym_tpu_torch.learner import distill as distill_mod, evaluate as evaluate_mod
+    from heligym_tpu_torch.ops.cuda import fused_step as fs
+
+    out_dir = os.path.join(here, "build", "chip_smoke", "distill")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    ex = lambda name: os.path.join(here, "examples", name)
+
+    def committed(name):
+        with open(ex(f"{name}_eval.json")) as f:
+            return json.load(f)["aggregate"]["mean"]["success_frac"]["mean"]
+
+    report, total = {}, [0]
+    fits, ends = [], []         # every BC fit's weights; the collectors' ended flags
+    spent = {}                  # host seconds in the fits and the evaluations
+    n_evals = [0]
+    make_fitter, make_ev = distill_mod.make_bc_fitter, evaluate_mod.make_evaluator
+    step = fs.fused_step
+
+    def timed(key, fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+        return out
+
+    def recording_fitter(learner, **kw):
+        fit = make_fitter(learner, **kw)
+
+        def run(ts, obs, resid, w, **k):
+            out = timed("fit_s", fit, ts, obs, resid, w, **k)
+            fits.append({"w": w, "in": ts.params, "out": out[0].params})
+            return out
+        return run
+
+    def timed_evaluator(*args, **kw):
+        ev = make_ev(*args, **kw)
+
+        def run(ts, generator):
+            n_evals[0] += 1
+            return timed("eval_s", ev, ts, generator)
+        return run
+
+    def recording_step(env, carry, init, act, eta, auto_reset=True, carry_out=None,
+                       collect_out=None, collect=True):
+        c, x = step(env, carry, init, act, eta, auto_reset, carry_out, collect_out,
+                    collect)
+        ends.append((x[fs.CDONE] != 0) | (x[fs.CTRUNC] != 0))
+        return c, x
+
+    def run(name, main, argv, steps, n_fits, evals, record=False):
+        """`main(argv)` timed to a synchronize, with its own counts; every
+        one of its `steps` env steps must be a one-step launch. The tools
+        reach the fitter, the evaluator and the step through module
+        attributes patched here: the run fails unless exactly `n_fits` fits
+        and `evals` evaluations were timed, so that a path around the
+        patches shows."""
+        fits.clear()
+        ends.clear()
+        spent.clear()
+        n_evals[0] = 0
+        out = os.path.join(out_dir, name)
+        argv = argv + ["--out", out + ".npz", "--metrics-out", out + ".json"] \
+            if name != "tune" else argv + ["--json-out", out + ".json"]
+        zero_counts()
+        distill_mod.make_bc_fitter = recording_fitter
+        distill_mod.make_evaluator = evaluate_mod.make_evaluator = timed_evaluator
+        if record:
+            fs.fused_step = recording_step
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ret = main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            distill_mod.make_bc_fitter, fs.fused_step = make_fitter, step
+            distill_mod.make_evaluator = evaluate_mod.make_evaluator = make_ev
+        n, calls = fs.launches, dict(fs.calls)
+        report[name] = {"argv": argv, "wall_s": wall, "launches": n, "calls": calls,
+                        "fit_s": spent.get("fit_s", 0.0), "eval_s": spent.get("eval_s", 0.0)}
+        print(f"[distill] {name}: {wall:.1f} s = fits {report[name]['fit_s']:.1f} s + "
+              f"evaluations {report[name]['eval_s']:.1f} s + collection, resets and "
+              f"files {wall - report[name]['fit_s'] - report[name]['eval_s']:.1f} s; "
+              f"{n} step-kernel steps")
+        if n != steps or calls["step"] != steps:
+            fail(f"distillation {name}: the step kernel ran {n} steps in {calls}, "
+                 f"expected {steps} one-step launches")
+        if len(fits) != n_fits or n_evals[0] != evals:
+            fail(f"distillation {name}: {len(fits)} fits and {n_evals[0]} evaluations "
+                 f"were timed, expected {n_fits} and {evals}")
+        if record and len(ends) != steps:
+            fail(f"distillation {name}: {len(ends)} of {steps} steps were recorded")
+        total[0] += n
+        return ret, out
+
+    def check_actor_only(name, fit):
+        """The fit moved the actor and left the critic and log_std
+        bit-equal."""
+        a, b = fit["in"], fit["out"]
+        frozen = list(a.critic.parameters()) + list(a.value.parameters()) + [a.log_std]
+        kept = list(b.critic.parameters()) + list(b.value.parameters()) + [b.log_std]
+        equal = all(torch.equal(x, y) for x, y in zip(frozen, kept))
+        moved = not torch.equal(a.mean.weight, b.mean.weight)
+        if not (equal and moved):
+            fail(f"distillation {name}: critic/log_std bit-equal {equal}, actor moved {moved}")
+        return equal
+
+    def finite_losses(name, history):
+        losses = [h["bc_loss"] for h in history if "bc_loss" in h]
+        if not losses or not all(np.isfinite(losses)):
+            fail(f"distillation {name}: bc_loss {losses}")
+        return losses
+
+    learner = PPOLearner(HeliEnv.build("aw109", task=LandingTask()),
+                         PPOConfig(num_envs=4096))
+    eval_steps = learner.env.time_up_steps + 3
+
+    # (a) the scripted expert on the 6-100 ft grid
+    tune = load_tool("torch_tune_scripted")
+    res, _ = run("tune", tune.main, ["--band", "6:100", "--envs", "128",
+                                     "--seeds", "0,1,2"], 3 * eval_steps, 0, 0)
+    fails = [s["fail"] for s in res["per_seed"]]
+    report["tune"].update(mean_succ=res["mean_succ"], per_seed=res["per_seed"])
+    print(f"[distill] (a) scripted expert, 3 seeds x 128 grid points 6-100 ft: mean "
+          f"success {res['mean_succ']:.4f} (per seed "
+          f"{[round(s['succ'], 4) for s in res['per_seed']]}; documented 0.926 +- 0.01), "
+          f"fail {np.mean(fails):.4f} (documented 0.067)")
+    if res["mean_succ"] < TUNE_GATE:
+        fail(f"distillation: the scripted expert scored {res['mean_succ']:.4f} < {TUNE_GATE}")
+
+    # (b) self-imitation distillation, the committed stage-1 widths, 1 round
+    argv = ["--checkpoint", ex("landing_band_policy.npz"), "--task", "landing",
+            "--target", "touch_alt=ground", "--train-num-envs", "4096", "--band", "6:55",
+            "--episodes", "2048", "--epochs", "8", "--minibatch", "65536",
+            "--eval-episodes", "256", "--rounds", "1"]
+    _, out = run("self_imitation", distill_mod.main, argv, 3 * eval_steps, 1, 2)
+    with open(out + ".json") as f:
+        history = json.load(f)["history"]
+    want = committed("landing_band")
+    if len(history) != 2 or len(fits) != 1:
+        fail(f"distillation self_imitation: {len(history)} rounds, {len(fits)} fits")
+    cloned = float(fits[0]["w"].sum())
+    losses = finite_losses("self_imitation", history)
+    equal = check_actor_only("self_imitation", fits[0])
+    best = learner.restore(out + ".npz.best.npz", with_farm=True)
+    report["self_imitation"].update(history=history, cloned_steps=cloned,
+                                    committed_det=want, critic_log_std_equal=equal,
+                                    best_update_count=best.update_count)
+    print(f"[distill] (b) self-imitation, 2048 episodes x 2003 steps, 8 epochs: round 0 "
+          f"det {history[0]['success_frac']:.4f} (committed {want:.4f}); round 1 "
+          f"stochastic {history[1]['stoch_success']:.4f}, {cloned:.0f} cloned steps, "
+          f"bc_loss {losses[0]:.6f}, det {history[1]['success_frac']:.4f}; critic and "
+          f"log_std bit-equal {equal}; .best.npz read back")
+    if abs(history[0]["success_frac"] - want) > DISTILL_MARGIN:
+        fail(f"distillation self_imitation: round 0 {history[0]['success_frac']:.4f} lies "
+             f"more than {DISTILL_MARGIN} from the committed {want:.4f}")
+    if cloned <= 0:
+        fail("distillation self_imitation: no step was cloned")
+
+    # (c) the scripted expert distilled, 1 BC and 1 DAgger round
+    argv = ["--init", ex("landing100_policy.npz"), "--train-num-envs", "4096",
+            "--band", "6:100", "--episodes", "1024", "--collect-log-std", "-3",
+            "--epochs", "10", "--minibatch", "65536", "--eval-episodes", "256",
+            "--bc-rounds", "1", "--dagger-rounds", "1"]
+    scripted = load_tool("torch_distill_scripted")
+    history, _ = run("scripted", scripted.main, argv, 5 * eval_steps, 2, 3, record=True)
+    want = committed("landing100")
+    if len(history) != 3 or len(fits) != 2:
+        fail(f"distillation scripted: {len(history)} rounds, {len(fits)} fits")
+    # the collectors' steps (1024 envs; the evaluations have 256), in order
+    coll = torch.stack([e for e in ends if e.shape[0] == 1024])
+    if coll.shape[0] != 2 * eval_steps:
+        fail(f"distillation scripted: {coll.shape[0]} collector steps recorded")
+    alive = []
+    for block in (coll[:eval_steps], coll[eval_steps:]):
+        ended_before = torch.cumsum(block.int(), 0) - block.int()
+        alive.append(ended_before == 0)
+    w_bc, w_dagger = (f["w"].bool() for f in fits)
+    dagger_missed = int((alive[1] & ~w_dagger).sum())
+    dagger_extra = int((w_dagger & ~alive[1]).sum())
+    bc_partial = int(((w_bc != alive[0]).any(0) & w_bc.any(0)).sum())
+    losses = finite_losses("scripted", history)
+    equal = all(check_actor_only("scripted", f) for f in fits)
+    report["scripted"].update(history=history, committed_det=want,
+                              dagger_weighted=int(w_dagger.sum()),
+                              dagger_alive=int(alive[1].sum()),
+                              dagger_missed=dagger_missed, dagger_extra=dagger_extra,
+                              bc_weighted=int(w_bc.sum()), bc_partial_envs=bc_partial)
+    print(f"[distill] (c) scripted distillation, 1024 episodes x 2003 steps, 10 epochs: "
+          f"round 0 det {history[0]['success_frac']:.4f} (committed {want:.4f}); BC acting "
+          f"success {history[1]['acting_success']:.4f} (committed 0.855-0.874), "
+          f"{int(w_bc.sum())} labelled steps, bc_loss {losses[0]:.6f}, det "
+          f"{history[1]['success_frac']:.4f}; DAgger acting success "
+          f"{history[2]['acting_success']:.4f}, {int(w_dagger.sum())} labelled of "
+          f"{int(alive[1].sum())} alive steps (missed {dagger_missed}, extra "
+          f"{dagger_extra}), bc_loss {losses[1]:.6f}, det {history[2]['success_frac']:.4f}; "
+          f"critic and log_std bit-equal {equal}")
+    if abs(history[0]["success_frac"] - want) > DISTILL_MARGIN:
+        fail(f"distillation scripted: round 0 {history[0]['success_frac']:.4f} lies more "
+             f"than {DISTILL_MARGIN} from the committed {want:.4f}")
+    if history[1]["acting_success"] < BC_ACTING_GATE:
+        fail(f"distillation scripted: the expert's acting success "
+             f"{history[1]['acting_success']:.4f} < {BC_ACTING_GATE}")
+    if dagger_missed or dagger_extra or bc_partial:
+        fail(f"distillation scripted: DAgger weights missed {dagger_missed} alive steps "
+             f"and weighted {dagger_extra} others; {bc_partial} BC episodes partly weighted")
+
+    # (d) multitask distillation on the committed multitask4 config, 1 DAgger round
+    with open(ex("multitask4_distill_metrics.json")) as f:
+        mt = json.load(f)
+    experts = mt["config"]["experts"].replace("examples/", ex(""))
+    argv = ["--experts", experts, "--target", mt["config"]["target"],
+            "--collect-steps", "1200", "--collect-envs", "512", "--collect-log-std", "-3",
+            "--epochs", "10", "--task-loss-weights", "2,1,1,1", "--out-num-envs", "1024",
+            "--eval-episodes", "512", "--seed", "63", "--dagger-rounds", "1"]
+    multitask = load_tool("torch_distill_multitask")
+    history, _ = run("multitask", multitask.main, argv, 4 * 1200 + 4 * 600 + 2 * eval_steps,
+                     2, 2)
+    losses = finite_losses("multitask", history)
+    per_task = [[round(h[f"success_frac_t{i}"], 4) for i in range(4)] for h in history]
+    report["multitask"].update(history=history, committed=mt["history"][:2])
+    print(f"[distill] (d) multitask4, 4 experts x 512 envs x 1200 steps, 10 epochs: round 0 "
+          f"success {history[0]['success_frac']:.4f} per task {per_task[0]} (committed "
+          f"{mt['history'][0]['success_frac']:.4f}), round 1 {history[1]['success_frac']:.4f} "
+          f"per task {per_task[1]} (committed {mt['history'][1]['success_frac']:.4f}); "
+          f"bc_loss {losses[0]:.6f}, {losses[1]:.6f}")
+    if history[0]["success_frac"] < MULTITASK_GATE:
+        fail(f"distillation multitask: round 0 success {history[0]['success_frac']:.4f} "
+             f"< {MULTITASK_GATE}")
+
+    # (e) the hybrid blend's mechanics: one policy as both experts, 1 round
+    lander = f"{ex('landing_band_policy.npz')}:2048"
+    hybrid = load_tool("torch_distill_hybrid")
+    history, _ = run("hybrid", hybrid.main, ["--lander", lander, "--descender", lander,
+                                             "--rounds", "1"], 3 * eval_steps, 1, 2)
+    losses = finite_losses("hybrid", history)
+    kept = float(fits[0]["w"].sum()) if fits else 0.0
+    report["hybrid"].update(history=history, kept=kept)
+    print(f"[distill] (e) hybrid blend (landing_band as lander and descender), 2048 "
+          f"episodes, 6-100 ft: round 0 det {history[0]['success_frac']:.4f}, round 1 "
+          f"{kept:.0f} samples, bc_loss {losses[0]:.3e}, det "
+          f"{history[1]['success_frac']:.4f}")
+    if len(history) != 2 or kept <= 0:
+        fail(f"distillation hybrid: {len(history)} rounds, {kept} samples kept")
+    return report, total[0]
 
 
 def rows_of(rows, name):

@@ -23,6 +23,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+from typing import Optional
 
 import numpy as np
 import torch
@@ -34,6 +35,76 @@ from .ppo import PPOConfig, PPOLearner, TrainState
 from .train import TASKS, _band, _parse_target, make_alt_grid_sampler
 
 
+def rollout(env: HeliEnv, es, act_fn, steps: int,
+            generator: Optional[torch.Generator] = None, *, eta_seq=None,
+            keep_obs: bool = False) -> dict:
+    """Step the farm `es` for `steps` steps without auto-reset, each step
+    one `fused_step(env, ..., auto_reset=False)`: the CUDA kernel on the
+    card, its plain version on the CPU. Every evaluator and collector of the
+    port runs on this loop.
+
+    `act_fn(t, obs) -> (executed (B, 4), extra)` acts on the observations
+    before step t; `extra`, a (B, k) tensor or None, is kept for every
+    step. The Dryden noise of step t is `eta_seq[t]` ((T, 3, B), already
+    scaled by 1/sqrt(dt)), else drawn from `generator` after `act_fn`.
+    Success is read from the counter before each step, as the env's
+    criterion does, and each env's first end is latched; an env runs on
+    past its end.
+
+    Returns `alive` (T, B) bool, true on each env's steps up to and with
+    its first end; `succ` and `fail` (B,) bool; `end` (B,) int32, the step
+    of the first end or -1; `reward` (B,), the rewards summed up to the end
+    (a non-finite one counts 0); `last_obs` (B, 17), the observations after
+    the last step; `extra` (T, B, k) when `act_fn` returns one; and with
+    `keep_obs` `obs` (T, B, 17), each step's observations."""
+    carry, init = fs.pack(es)
+    n, dev = carry.shape[1], carry.device
+    succ_required = float(env.success_steps_required)
+    eta_scale = (1.0 / env.dt) ** 0.5
+    xbuf = torch.empty((fs.XROWS, n), dtype=torch.float32, device=dev)
+    obs_buf = (torch.empty((steps, n, 17), dtype=torch.float32, device=dev)
+               if keep_obs else None)
+    alive_buf = torch.empty((steps, n), dtype=torch.bool, device=dev)
+    extra_buf = None
+    succ = torch.zeros(n, dtype=torch.bool, device=dev)
+    fail = torch.zeros(n, dtype=torch.bool, device=dev)
+    end = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    reward = torch.zeros(n, dtype=torch.float32, device=dev)
+    for t in range(steps):
+        obs = carry[fs.O0:fs.D0].T
+        if keep_obs:
+            obs_buf[t] = obs
+        act, extra = act_fn(t, obs)
+        if extra is not None:
+            if extra_buf is None:
+                extra_buf = torch.empty((steps,) + tuple(extra.shape),
+                                        dtype=extra.dtype, device=dev)
+            extra_buf[t] = extra
+        eta = (eta_seq[t] if eta_seq is not None else
+               torch.randn((3, n), generator=generator, device=dev) * eta_scale)
+        # the env's success criterion reads the counter before the step
+        successed = carry[fs.SUCC] >= succ_required
+        fs.fused_step(env, carry, init, act.contiguous(), eta.contiguous(),
+                      auto_reset=False, carry_out=carry, collect_out=xbuf)
+        alive = end < 0
+        alive_buf[t] = alive
+        end_now = ((xbuf[fs.CDONE] != 0) | (xbuf[fs.CTRUNC] != 0)) & alive
+        # a blown-up env can emit one non-finite reward before its
+        # non-finite-state termination; keep the sums finite
+        r = torch.nan_to_num(xbuf[fs.CREW], nan=0.0, posinf=0.0, neginf=0.0)
+        succ = succ | (end_now & successed)
+        fail = fail | (end_now & (xbuf[fs.CFAIL] != 0))
+        end = torch.where(end_now, t, end)
+        reward = reward + torch.where(alive, r, 0.0)
+    out = {"alive": alive_buf, "succ": succ, "fail": fail, "end": end,
+           "reward": reward, "last_obs": carry[fs.O0:fs.D0].T.clone()}
+    if extra_buf is not None:
+        out["extra"] = extra_buf
+    if keep_obs:
+        out["obs"] = obs_buf
+    return out
+
+
 def make_evaluator(env: HeliEnv, learner: PPOLearner, *, episodes: int,
                    steps: int, stochastic: bool = False,
                    trim_cond=None, task_ids=None, cond_sampler=None):
@@ -43,37 +114,14 @@ def make_evaluator(env: HeliEnv, learner: PPOLearner, *, episodes: int,
     `train.make_alt_grid_sampler`) from its own start condition through the
     batched Newton trim."""
     venv = VectorHeliEnv(env, episodes, auto_reset=False)
-    dev = env.device
-    succ_required = float(env.success_steps_required)
 
     def run(params, stats, es, generator):
         toh = learner._task_oh(es.task_id)
-        carry, init = fs.pack(es)
-        xbuf = torch.empty((fs.XROWS, episodes), dtype=torch.float32, device=dev)
-        eta_scale = (1.0 / env.dt) ** 0.5
-        succ = torch.zeros(episodes, dtype=torch.bool, device=dev)
-        fail = torch.zeros(episodes, dtype=torch.bool, device=dev)
-        end = torch.full((episodes,), -1, dtype=torch.int32, device=dev)
-        reward = torch.zeros(episodes, dtype=torch.float32, device=dev)
-        for t in range(steps):
-            act = learner.policy(params, carry[fs.O0:fs.D0].T, generator,
-                                 stats, toh, stochastic=stochastic)
-            eta = torch.randn((3, episodes), generator=generator,
-                              device=dev) * eta_scale
-            # the env's success criterion reads the counter before the step
-            successed = carry[fs.SUCC] >= succ_required
-            fs.fused_step(env, carry, init, act.contiguous(), eta,
-                          auto_reset=False, carry_out=carry, collect_out=xbuf)
-            alive = end < 0
-            end_now = ((xbuf[fs.CDONE] != 0) | (xbuf[fs.CTRUNC] != 0)) & alive
-            # a blown-up env can emit one non-finite reward before its
-            # non-finite-state termination; keep the sums finite
-            r = torch.nan_to_num(xbuf[fs.CREW], nan=0.0, posinf=0.0, neginf=0.0)
-            succ = succ | (end_now & successed)
-            fail = fail | (end_now & (xbuf[fs.CFAIL] != 0))
-            end = torch.where(end_now, t, end)
-            reward = reward + torch.where(alive, r, 0.0)
-        return {"succ": succ, "fail": fail, "end": end, "reward": reward}
+
+        def act(t, obs):
+            return learner.policy(params, obs, generator, stats, toh,
+                                  stochastic=stochastic), None
+        return rollout(env, es, act, steps, generator)
 
     def evaluator(ts: TrainState, generator: torch.Generator) -> dict:
         if cond_sampler is not None:
@@ -85,7 +133,8 @@ def make_evaluator(env: HeliEnv, learner: PPOLearner, *, episodes: int,
         stats = ts.obs_stats if learner.config.obs_norm else None
         with torch.no_grad():
             res = {k: v.cpu().numpy()
-                   for k, v in run(ts.params, stats, es0, generator).items()}
+                   for k, v in run(ts.params, stats, es0, generator).items()
+                   if k in ("succ", "fail", "end", "reward")}
         succ, fail, end = res["succ"], res["fail"], res["end"]
         ended = end >= 0
         out = {

@@ -686,10 +686,11 @@ class PPOLearner:
         save_npz(path, tree, generator_state=ts.generator.get_state().numpy())
 
     def restore(self, path: str, template: Optional[TrainState] = None,
-                farm_size: Optional[int] = None) -> TrainState:
+                farm_size: Optional[int] = None, with_farm: bool = False) -> TrainState:
         """A TrainState checkpoint (the JAX package's or the port's): the
         network, Adam's state and the observation statistics; with a
-        `template`, also the env farm, which must be the template's size.
+        `template`, also the env farm, which must be the template's size;
+        with `with_farm`, the farm the file holds, whatever its size.
         `farm_size`: the farm size the checkpoint must have (a scale-up
         resume's check); None: the template's. The generator continues the
         port's saved stream where the file holds one for a generator of the
@@ -718,7 +719,7 @@ class PPOLearner:
             raise ValueError(f"checkpoint {path} holds a farm of {stored} envs, not "
                              f"{farm_size} (a scale-up resume takes resume_num_envs)")
         es = None
-        if template is not None and template.env_state is not None:
+        if with_farm or (template is not None and template.env_state is not None):
             es = env_state_from_numpy(ck["env_state"], dev)
         gen = torch.Generator(device=dev)
         state = ck["extra"].get("generator_state")

@@ -477,3 +477,125 @@ def test_kernel_matches_plain_from_randomized_farm():
         assert _bits_equal(carry_k[:fs.SROWS][:, ended], init[:fs.SROWS][:, ended])
         ended_once |= ended
     assert bool(ended_once.all())
+
+
+def _distill_pair(n, hidden):
+    """(card learner, CPU learner, network on the CPU, stats) on landing at
+    the gear-contact altitude + 8 ft with a 0.36 s episode wall, so that the
+    envs started below ~15 ft succeed and the others time out."""
+    from heligym_tpu_torch.learner import ObsStats, PPOConfig, PPOLearner
+    from heligym_tpu_torch.learner.train import _parse_target
+    learners = []
+    for dev in ("cuda", "cpu"):
+        env = HeliEnv.build("aw109", task=LandingTask(), device=dev)
+        env = env.replace(task=env.task.with_target(
+            **_parse_target("touch_alt=ground+8", env)), max_time=0.36)
+        learners.append(PPOLearner(env, PPOConfig(num_envs=n, hidden=hidden)))
+    net = learners[1].make_network(torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(2)
+    stats = ObsStats(mean=torch.from_numpy(rng.standard_normal(17).astype(np.float32) * 0.3),
+                     var=torch.from_numpy(rng.uniform(0.5, 2.0, 17).astype(np.float32)),
+                     count=torch.tensor(3e3))
+    return learners[0], learners[1], net, stats
+
+
+def _on(dev, net, stats):
+    import copy
+    from heligym_tpu_torch.learner import ObsStats, TrainState
+    return TrainState(params=copy.deepcopy(net).to(dev), env_state=None, update_count=0,
+                      obs_stats=ObsStats(*(getattr(stats, k).to(dev)
+                                           for k in ("mean", "var", "count"))))
+
+
+@pytest.mark.cuda
+def test_distill_collector_card_equals_cpu():
+    """`learner/distill.py::make_collector` on the card (the step kernel,
+    20 launches) against the same collector on the CPU (the plain version),
+    from the same start farm with the same injected action and Dryden
+    noise: obs at the fused contract (rtol 1e-4, atol 2e-3), resid at atol
+    2e-5, the weights and the success fraction equal, some episodes
+    succeeding and some not."""
+    _need_card()
+    from heligym_tpu_torch.envs.env import map_tensors
+    from heligym_tpu_torch.learner import distill
+    from heligym_tpu_torch.learner.train import make_alt_grid_sampler
+    n, steps = 256, 20
+    card, cpu, net, stats = _distill_pair(n, (64, 64))
+    es, _ = VectorHeliEnv(cpu.env, n, auto_reset=False).reset_randomized(
+        torch.Generator().manual_seed(0), make_alt_grid_sampler(6.0, 20.0))
+    rng = np.random.default_rng(3)
+    noise = torch.from_numpy(rng.standard_normal((steps, n, 4)).astype(np.float32))
+    eta = torch.from_numpy((rng.standard_normal((steps, 3, n)) * 50 ** 0.5).astype(np.float32))
+    out = {}
+    for learner, dev in ((card, "cuda"), (cpu, "cpu")):
+        before = fs.launches
+        out[dev] = distill.make_collector(learner.env, learner, episodes=n, steps=steps,
+                                          cond_sampler=None)(
+            _on(dev, net, stats), None, log_std_override=-3.0,
+            start=map_tensors(lambda x: x.to(dev), es), noise=noise.to(dev),
+            eta_seq=eta.to(dev))
+        assert fs.launches - before == (steps if dev == "cuda" else 0)
+    (obs_k, resid_k, w_k, succ_k), (obs_p, resid_p, w_p, succ_p) = out["cuda"], out["cpu"]
+    assert obs_k.is_cuda and torch.equal(w_k.cpu(), w_p) and succ_k == succ_p
+    assert 0.0 < succ_k < 1.0
+    torch.testing.assert_close(obs_k.cpu(), obs_p, rtol=1e-4, atol=2e-3)
+    torch.testing.assert_close(resid_k.cpu(), resid_p, rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_bc_fit_card_equals_cpu():
+    """`make_bc_fitter` on the card against the CPU: 2 epochs over 8192 rows
+    in minibatches of 2048 from the same network, data and permutations;
+    every parameter within 1e-4 of its tensor's largest magnitude (phase 5b's
+    bar for one update), the losses within 1e-4, the critic and log_std
+    bit-equal to the input's."""
+    _need_card()
+    from heligym_tpu_torch.learner import distill
+    card, cpu, net, stats = _distill_pair(8, (256, 256))
+    rng = np.random.default_rng(5)
+    T, B = 4, 2048
+    obs = (rng.standard_normal((T, B, 17)) * np.asarray(
+        [500, 15, 15, 5, 10, 10, 5, 0.2, 0.2, 0.5, 0.3, 0.3, 0.3, 30, 30, 1700, 50]) * 0.1)
+    data = [torch.from_numpy(a.astype(np.float32)) for a in
+            (obs, rng.standard_normal((T, B, 4)) * 0.1,
+             (rng.random((T, B)) < 0.7) * rng.uniform(0.5, 2.0, (T, B)))]
+    perms = [torch.from_numpy(rng.permutation(T * B)) for _ in range(2)]
+    res = {}
+    for learner, dev in ((card, "cuda"), (cpu, "cpu")):
+        ts = _on(dev, net, stats)
+        res[dev] = distill.make_bc_fitter(learner, lr=3e-4, minibatch=2048)(
+            ts, *(a.to(dev) for a in data), epochs=2, perms=[p.to(dev) for p in perms])
+    (ts_k, loss_k), (ts_p, loss_p) = res["cuda"], res["cpu"]
+    assert abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)
+    moved = 0
+    for (name, _, a), (_, _, b), (_, _, c) in zip(ts_k.params.flax_leaves(),
+                                                  ts_p.params.flax_leaves(),
+                                                  net.flax_leaves()):
+        a, b, c = a.detach().cpu(), b.detach(), c.detach()
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), name
+        if name in net.actor_flax_names() - {"log_std"}:
+            moved += not torch.equal(a, c)
+        else:
+            assert torch.equal(a, c), name
+    assert moved == 6
+
+
+@pytest.mark.cuda
+def test_scripted_expert_lands_on_card():
+    """The scripted expert (`learner/scripted.py`) flies 16 full episodes
+    from a 6-30 ft start grid on the card (`tools/torch_tune_scripted.py`,
+    the step kernel each step) and lands (settled on the gear at the
+    contact altitude) in at least 3 of 4, as the JAX package's
+    test_scripted_landing_succeeds lands from 15 ft."""
+    _need_card()
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "torch_tune_scripted", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "tools", "torch_tune_scripted.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    before = fs.launches
+    out = tool.main(["--envs", "16", "--band", "6:30", "--seeds", "0"])
+    assert fs.launches - before == 2003
+    assert out["mean_succ"] >= 0.75, out
