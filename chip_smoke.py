@@ -84,8 +84,24 @@ failure exits non-zero:
      launches, beside their bounds and the plain version; the block sizes
      at 4096 and 16384 envs, each timed from a fresh carry that every
      launch reads and none overwrites, its outputs held bit for bit against
-     the kept block's; one JSON line describing each kernel.
-Before each path (3, the bench, 4, 5, 5b, 5c, 6, each run of 6b) every kernel's counts are set
+     the kept block's;
+  8. the gymnasium surfaces and the renderer feed: `HeliEnv.reset` and
+     `heli_step` on the card against the CPU (within 1e-5 of each field's
+     scale); for each of the seven gymnasium ids the facade's core
+     (`envs/gym_core.py::SingleCore`: the card's machine has no gymnasium,
+     and `gym_api`'s classes are thin over it) reset and stepped 200 times with the
+     trim action, every step one kernel launch, its carry and collect block
+     at 4 steps held bit for bit against the plain version from the same
+     carry and noise, steps/s on the host clock; `BatchCore` (the
+     `HeliVectorGymEnv` core) at 4096 envs from `reset(seed=0)` diving
+     (collective -1) until every env has ended, each ended env's final obs
+     bit-equal to the plain version's rows 22-38 and its returned obs its
+     snapshot's, env-steps/s; the native renderer built with g++ from the
+     JAX package's C++ sources (it must build) and one native and one
+     top-down frame of the card state, each equal to a fresh renderer's
+     frame of the state's CPU copy, ms per frame;
+then one JSON line describing each kernel.
+Before each path (3, the bench, 4, 5, 5b, 5c, 6, each run of 6b, 8) every kernel's counts are set
 to 0, and read just after; a path whose kernel never ran fails the script. The step
 kernel's count is of env steps it ran: a T-step launch or a graph replay of
 T steps counts T, a graph capture 1 (its warm-up launch); the profiled
@@ -134,6 +150,11 @@ DISTILL_MARGIN = 0.06          # round 0: one fixed-noise evaluation of a commit
 TUNE_GATE = 0.89               # the scripted expert: documented 0.926 +- 0.01 on 3 x 128
 BC_ACTING_GATE = 0.80          # the expert's acting success in a BC round (committed 0.855-0.874)
 MULTITASK_GATE = 0.88          # multitask4's round 0 (committed 0.9375)
+GYM_TOL = 1e-5                 # heli_step card vs CPU, over each field's scale
+GYM_STEPS = 200                # steps of each id's single env
+GYM_CHECK = (0, 1, 100, 199)   # its steps held bit for bit against the plain version
+GYM_DIVE_MAX = 600             # the vector env's dive ends before this
+GYM_FRAMES = 5                 # frames timed per renderer
 # the committed policies scored in phase 6; `heads` are the gated ones
 EVALS = {
     "multitask4": dict(tasks=",".join(MIXED4), task="hover",
@@ -1177,6 +1198,9 @@ def main():
                     fail(f"sweep: block {block} differs from block {kept} in {bits} "
                          f"values at {n} envs, {name}")
 
+    # ---- 8. the gymnasium surfaces and the renderer feed ---------------------------
+    report["surfaces"], gym_launches = surfaces(zero_counts, nan_bit_mismatches)
+
     nb = report["numbers"]["mixed4"]
     kernels = [{"name": fs.KERNEL, "route": "cuda",
                 "source": "heligym_tpu_torch/csrc/fused_step.cu",
@@ -1187,7 +1211,8 @@ def main():
                                      "train": train_launches,
                                      "randomized": band_launches,
                                      "evaluation": eval_launches,
-                                     "distill": distill_launches},
+                                     "distill": distill_launches,
+                                     "gym": gym_launches},
                 "max_abs_err": max_abs_err, "ms": nb["kernel_ms"],
                 "plain_ms": nb["plain_ms"], "bound_ms": nb["bound_ms"],
                 "bound_by": nb["bound_by"], "library_ms": None,
@@ -1481,6 +1506,153 @@ def distillation(here, load_tool, zero_counts):
     if len(history) != 2 or kept <= 0:
         fail(f"distillation hybrid: {len(history)} rounds, {kept} samples kept")
     return report, total[0]
+
+
+def surfaces(zero_counts, nan_bit_mismatches):
+    """Phase 8: the gymnasium surfaces and the renderer feed on the card.
+    Returns (report, step-kernel steps)."""
+    import torch
+    from heligym_tpu_torch import ENV_IDS
+    from heligym_tpu_torch.envs import TASKS, BatchCore, HeliEnv, HoverTask, SingleCore
+    from heligym_tpu_torch.envs.env import map_tensors
+    from heligym_tpu_torch.ops.cuda import fused_step as fs
+    from heligym_tpu_torch.render import (NativeRenderer, NumpyTopDownRenderer,
+                                          native_available)
+
+    report = {"gymnasium_installed": importlib.util.find_spec("gymnasium") is not None}
+    zero_counts()
+    t_phase = time.perf_counter()
+
+    # HeliEnv.reset and heli_step on the card against the CPU
+    envs = {dev: HeliEnv.build("aw109", task=HoverTask(), device=dev)
+            for dev in ("cuda", "cpu")}
+    out = {}
+    for dev, env in envs.items():
+        es, _ = env.reset()
+        a = env.trim_result().action.to(env.device)
+        new, k4, obs = env.heli_step(es.heli, tuple(a[i] for i in range(4)),
+                                     tuple(es.wind_ned[i] for i in range(3)))
+        out[dev] = {"reset": es.heli.flatten(), "state": new.flatten(),
+                    "k4": k4.flatten(), "obs": torch.stack(obs)}
+    rel = {k: float(((out["cuda"][k].cpu() - v).abs() / v.abs().clamp(min=1.0)).max())
+           for k, v in out["cpu"].items()}
+    report["heli_step_vs_cpu"] = rel
+    print(f"[gym] HeliEnv.reset, heli_step on the card vs the CPU, max |err| over each "
+          f"field's scale: " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+          + f" (tolerance {GYM_TOL})")
+    if max(rel.values()) > GYM_TOL:
+        fail(f"heli_step on the card differs from the CPU by {max(rel.values()):.3e}")
+
+    # each id's single env: one kernel launch per step, its carry held bit
+    # for bit against the plain version from the same carry and noise
+    report["single"] = {}
+    for name in ENV_IDS:
+        core = SingleCore(HeliEnv.build("aw109", task=TASKS[name]()))
+        core.generator.manual_seed(0)
+        core.reset()
+        act = core.trim({}).action.numpy()[None]
+        wall, bits, checked = 0.0, 0, 0
+        for t in range(GYM_STEPS):
+            before, calls = fs.launches, fs.calls["step"]
+            c0 = core.carry.clone() if t in GYM_CHECK else None
+            t0 = time.perf_counter()
+            core.step(act)
+            wall += time.perf_counter() - t0
+            if fs.launches - before != 1 or fs.calls["step"] - calls != 1:
+                fail(f"{name}: step {t} made {fs.launches - before} kernel launches")
+            if c0 is not None:
+                with torch.no_grad():
+                    cp, xp = fs.fused_step_plain(core.env, c0, core.init, core.act,
+                                                 core.eta, auto_reset=False)
+                bits += (nan_bit_mismatches(core.carry, cp)
+                         + nan_bit_mismatches(core.out[:fs.XROWS], xp))
+                checked += 1
+        rate = GYM_STEPS / wall
+        report["single"][name] = {"steps": GYM_STEPS, "steps_per_s": rate,
+                                  "bits_differing": bits, "steps_checked": checked}
+        print(f"[gym] {name}: {GYM_STEPS} steps of the trim action, one kernel launch "
+              f"each, {rate:.1f} steps/s; carry and collect vs the plain version at "
+              f"{checked} steps: {bits} bits differing")
+        if bits:
+            fail(f"{name}: the facade's step differs from the plain version in {bits} values")
+    single_state = core.state()
+
+    # the vector env at 4096 envs: a dive until every env has ended
+    env = HeliEnv.build("aw109", task=HoverTask())
+    core = BatchCore(env, N_ENVS)
+    core.generator.manual_seed(0)
+    core.reset()
+    act = np.tile(core.trim({}).action.numpy(), (N_ENVS, 1))
+    act[:, 0] = -1.0
+    ended_once = np.zeros(N_ENVS, bool)
+    snapshot = core.init[fs.O0:fs.D0].T.cpu().numpy()
+    wall, ends, final_bits, bits, snap_bad, steps = 0.0, 0, 0, 0, 0, 0
+    while not ended_once.all() and steps < GYM_DIVE_MAX:
+        c0 = core.carry.clone()
+        before = fs.launches
+        t0 = time.perf_counter()
+        res = core.step(act)
+        wall += time.perf_counter() - t0
+        steps += 1
+        if fs.launches - before != 1:
+            fail(f"vector env: step {steps} made {fs.launches - before} kernel launches")
+        ended = res.done | res.truncated
+        if ended.any():
+            with torch.no_grad():
+                cp, xp = fs.fused_step_plain(env, c0, core.init, core.act, core.eta)
+            want = xp[fs.CFINAL0:fs.XROWS].T.cpu().numpy()[ended]
+            final_bits += int((res.final_obs[ended].view(np.int32)
+                               != want.view(np.int32)).sum())
+            bits += (nan_bit_mismatches(core.carry, cp)
+                     + nan_bit_mismatches(core.out[:fs.XROWS], xp))
+            snap_bad += int((res.obs[ended] != snapshot[ended]).any(axis=1).sum())
+            ends += int(ended.sum())
+        ended_once |= ended
+    rate = N_ENVS * steps / wall
+    report["vector"] = {"envs": N_ENVS, "steps": steps, "env_steps_per_s": rate,
+                        "ends": ends, "envs_ended": int(ended_once.sum()),
+                        "final_obs_bits_differing": final_bits,
+                        "bits_differing_at_ends": bits, "obs_not_snapshot": snap_bad}
+    print(f"[gym] vector env, {N_ENVS} envs diving (collective -1): {steps} steps, "
+          f"{rate:.1f} env-steps/s, {int(ended_once.sum())} envs ended ({ends} ends); "
+          f"final_obs vs the plain version's rows 22-38: {final_bits} bits differing; "
+          f"carry and collect at the ending steps: {bits}; obs not the snapshot: {snap_bad}")
+    if not ended_once.all() or final_bits or bits or snap_bad:
+        fail("vector env: the dive's ends differ from the plain version")
+
+    # one native and one top-down frame of the card state, each against a
+    # fresh renderer's frame of its CPU copy
+    t0 = time.perf_counter()
+    if not native_available():
+        fail("the native renderer did not build")
+    report["render"] = {"native_build_s": time.perf_counter() - t0}
+    host_state = map_tensors(lambda x: x.cpu(), single_state)
+    for kind, make in (("native", lambda: NativeRenderer(envs["cuda"])),
+                       ("topdown", lambda: NumpyTopDownRenderer(envs["cuda"]))):
+        frames = []
+        for state in (single_state, host_state):
+            r = make()
+            frames.append(r.render(state))
+            r.close()
+        r = make()
+        t0 = time.perf_counter()
+        for _ in range(GYM_FRAMES):
+            frame = r.render(single_state)
+        ms = (time.perf_counter() - t0) / GYM_FRAMES * 1e3
+        r.close()
+        colours = len(np.unique(frames[0].reshape(-1, 3), axis=0))
+        equal = bool(np.array_equal(frames[0], frames[1]))
+        report["render"][kind] = {"shape": list(frame.shape), "ms_per_frame": ms,
+                                  "colours": colours, "equal_to_cpu_copy": equal}
+        print(f"[render] {kind}: {frame.shape} {frame.dtype}, {colours} colours, "
+              f"{ms:.2f} ms per frame ({GYM_FRAMES} frames of the card state); "
+              f"equal to the CPU copy's frame {equal}")
+        if frame.dtype != np.uint8 or frame.ndim != 3 or colours < 50 or not equal:
+            fail(f"{kind} frame: {frame.shape} {frame.dtype}, {colours} colours, "
+                 f"equal to the CPU copy's {equal}")
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"[gym] phase 8: {report['phase_s']:.1f} s, {fs.launches} step-kernel steps")
+    return report, fs.launches
 
 
 def rows_of(rows, name):

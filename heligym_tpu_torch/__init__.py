@@ -3,4 +3,28 @@
 Batched 6-DOF helicopter flight environments on torch tensors, with the whole
 env step fused into one hand-written CUDA kernel (`ops/cuda/fused_step.py`).
 Entry points run on the CUDA card unless the caller passes `device="cpu"`.
+
+Where gymnasium is installed, importing the package registers the gymnasium
+ids `heligym_tpu_torch/<Name>-v0` for the names in `ENV_IDS`
+(`envs/gym_api.py`), beside the JAX package's unprefixed ids. Where it is
+not, nothing is registered and every other module works: only
+`envs/gym_api.py` imports gymnasium, and `envs/gym_core.py` holds the
+facades' work without it.
 """
+import importlib.util
+
+__version__ = "0.1.0"
+
+# the gymnasium classes of envs/gym_api.py, registered as
+# "heligym_tpu_torch/<name>-v0"
+ENV_IDS = ("Heli", "HeliHover", "HeliForwardFlight", "HeliObliqueFlight",
+           "HeliTurningFlight", "HeliSlalom", "HeliLanding")
+
+if importlib.util.find_spec("gymnasium") is not None:
+    from gymnasium.envs.registration import register
+
+    for _name in ENV_IDS:
+        register(id=f"heligym_tpu_torch/{_name}-v0",
+                 entry_point=f"heligym_tpu_torch.envs.gym_api:{_name}",
+                 max_episode_steps=5000, reward_threshold=0.95,
+                 nondeterministic=False)

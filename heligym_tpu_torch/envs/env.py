@@ -40,6 +40,9 @@ from ..utils.math import pi_bound
 from .tasks import Normalizers, Task
 from .trim import TrimResult, trim
 
+OBS_DIM = 17
+ACT_DIM = 4
+
 
 def map_tensors(fn, obj):
     """Apply `fn` to every tensor of a (nested) state dataclass."""
@@ -229,6 +232,12 @@ class HeliEnv:
         return cond
 
     # -- physics sub-steps -------------------------------------------------
+    def heli_step(self, heli: HeliState, action4, wind_ned3):
+        """One helicopter RK4 step + post-step angle wrap, at the terrain
+        height under the committed position."""
+        h_ground = terrain_ops.ground_height(self.terrain, heli.x, heli.y)
+        return self.heli_step_with_h(heli, action4, wind_ned3, h_ground)
+
     def heli_step_with_h(self, heli: HeliState, action4, wind_ned3, h_ground):
         """One helicopter RK4 step + post-step angle wrap, with the terrain
         height at the committed position given. `action4`/`wind_ned3` are
@@ -356,3 +365,7 @@ class HeliEnv:
                       wind_ned=wind_mean, steps=zero, successed_steps=zero,
                       init=snap)
         return es, tr.obs
+
+    def reset(self, trim_cond: Optional[dict] = None) -> Tuple[EnvState, torch.Tensor]:
+        """Host trim (through the disk cache), then the state at it."""
+        return self.reset_from_trim(self.trim_result(trim_cond))

@@ -75,6 +75,27 @@ class HeliState(_Fields):
     y: torch.Tensor
     z: torch.Tensor
 
+    # -- stacked views (what the renderers read) ---------------------------
+    @property
+    def betas(self):
+        return torch.stack([self.b0, self.b1], dim=-1)
+
+    @property
+    def uvw(self):
+        return torch.stack([self.u, self.v, self.w], dim=-1)
+
+    @property
+    def pqr(self):
+        return torch.stack([self.p, self.q, self.r], dim=-1)
+
+    @property
+    def euler(self):
+        return torch.stack([self.phi, self.theta, self.psi], dim=-1)
+
+    @property
+    def xyz(self):
+        return torch.stack([self.x, self.y, self.z], dim=-1)
+
 
 @dataclasses.dataclass(frozen=True)
 class WindState(_Fields):

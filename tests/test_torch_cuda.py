@@ -599,3 +599,83 @@ def test_scripted_expert_lands_on_card():
     out = tool.main(["--envs", "16", "--band", "6:30", "--seeds", "0"])
     assert fs.launches - before == 2003
     assert out["mean_succ"] >= 0.75, out
+
+
+@pytest.mark.cuda
+def test_gym_cores_card_equal_cpu():
+    """The gymnasium facades' cores (`envs/gym_core.py`) on the card (one
+    step-kernel launch a step) against the same cores on the CPU (the plain
+    version) from the same state and noise: the single env 100 steps of
+    the trim action, no auto-reset; 64 envs, half diving, 200 steps with
+    auto-reset. Done, truncated, failed and success streams and the
+    counters equal at every step; the helicopter state, the obs and the
+    final obs at the fused contract (`tests/test_fused.py`: state rtol/atol
+    2e-4, obs rtol 1e-4 / atol 2e-3) for 30 steps, and within a drift of
+    2e-3 (`tests/test_rollouts.py`'s measure) over the run: CUDA's and the
+    CPU's transcendental functions differ by ulps, which the dynamics grow,
+    most in the k4 derivatives (outside the contract: up to 2.7 times the
+    state tolerance within 30 steps on the H100, where the state stays
+    under 0.2% of it); every ended env's obs its snapshot's."""
+    _need_card()
+    from heligym_tpu_torch.envs import BatchCore, SingleCore
+    for n, steps, dive in ((1, 100, False), (64, 200, True)):
+        cores = {}
+        for dev in ("cuda", "cpu"):
+            env = HeliEnv.build("aw109", task=HoverTask(), device=dev)
+            cores[dev] = SingleCore(env) if n == 1 else BatchCore(env, n)
+            cores[dev].reset()
+        card, cpu = cores["cuda"], cores["cpu"]
+        assert torch.equal(card.carry.cpu(), cpu.carry) and torch.equal(card.init.cpu(), cpu.init)
+        rng = np.random.default_rng(n)
+        act = np.tile(card.trim({}).action.numpy(), (n, 1)).astype(np.float32)
+        if dive:
+            act[::2, 0] = -1.0
+        snapshot = card.init[fs.O0:fs.D0].cpu().numpy().T
+        ended, traj = 0, {"cuda": [], "cpu": []}
+        for t in range(steps):
+            eta = (rng.standard_normal((3, n)) * 50 ** 0.5).astype(np.float32)
+            before = fs.launches
+            k, p = card.step_with_eta(act, eta), cpu.step_with_eta(act, eta)
+            assert fs.launches - before == 1
+            for f in ("done", "truncated", "failed", "successed"):
+                np.testing.assert_array_equal(getattr(k, f), getattr(p, f), err_msg=f"{f} {t}")
+            carry_k = card.carry.cpu()
+            assert torch.equal(carry_k[fs.STEPS:], cpu.carry[fs.STEPS:]), t
+            if t < 30:
+                torch.testing.assert_close(carry_k[fs.H0:fs.W0], cpu.carry[fs.H0:fs.W0],
+                                           rtol=2e-4, atol=2e-4)
+                torch.testing.assert_close(carry_k[fs.O0:fs.D0], cpu.carry[fs.O0:fs.D0],
+                                           rtol=1e-4, atol=2e-3)
+                np.testing.assert_allclose(k.final_obs, p.final_obs, rtol=1e-4, atol=2e-3)
+            for key, c, x in (("cuda", carry_k, k), ("cpu", cpu.carry, p)):
+                traj[key].append(torch.cat([c[fs.H0:fs.W0].T, c[fs.O0:fs.D0].T,
+                                            torch.from_numpy(x.final_obs)], dim=1))
+            ends = k.done | k.truncated
+            ended += int(ends.sum())
+            np.testing.assert_array_equal(k.obs[ends], snapshot[ends])
+        a, b = torch.stack(traj["cuda"]), torch.stack(traj["cpu"])
+        scale = b.abs().amax(dim=0, keepdim=True).clamp(min=1.0)
+        assert float(((a - b).abs() / scale).max()) < 2e-3
+        assert (ended >= n // 2) if dive else ended == 0
+
+
+@pytest.mark.cuda
+def test_native_frame_from_card_state_equals_cpu():
+    """The native renderer draws the same frame from a state on the card as
+    from its CPU copy, and so does the top-down view."""
+    _need_card()
+    from heligym_tpu_torch.envs.env import map_tensors
+    from heligym_tpu_torch.render import NativeRenderer, NumpyTopDownRenderer, native_available
+    assert native_available()
+    env = HeliEnv.build("aw109", task=HoverTask(), device="cuda")
+    es, _ = env.reset()
+    es = es.replace(heli=es.heli.replace(x=es.heli.x + 300.0, psi=es.heli.psi + 0.4))
+    host = map_tensors(lambda x: x.cpu(), es)
+    for make in (lambda: NativeRenderer(env, 320, 240), lambda: NumpyTopDownRenderer(env)):
+        frames = []
+        for state in (es, host):
+            r = make()
+            frames.append(r.render(state))
+            r.close()
+        assert frames[0].dtype == np.uint8 and frames[0].ndim == 3
+        np.testing.assert_array_equal(frames[0], frames[1])
