@@ -100,8 +100,19 @@ failure exits non-zero:
      JAX package's C++ sources (it must build) and one native and one
      top-down frame of the card state, each equal to a fresh renderer's
      frame of the state's CPU copy, ms per frame;
+  9. multi-device (`tools/torch_sharded_step.py`): the train step of 5b
+     sharded over ranks by `heligym_tpu_torch.parallel`, one step compared
+     and one timed: without a mesh in this process (the reference); (a)
+     one NCCL rank on cuda:0 in this process, held against the reference;
+     (b) two gloo ranks spawned on the same card (NCCL takes one rank per
+     card), 2048 envs each, each rank's rollout against its columns of
+     (a)'s (discrete streams exactly, floats at tests/test_sharding.py's
+     tolerances), parameters and Adam's moments within 1e-4 of their
+     scale, the metrics, `farm_metrics`, the generators' states, and a
+     2-rank save restored in one process bit-equal; per rank, collect,
+     update and its all-reduces by CUDA events;
 then one JSON line describing each kernel.
-Before each path (3, the bench, 4, 5, 5b, 5c, 6, each run of 6b, 8) every kernel's counts are set
+Before each path (3, the bench, 4, 5, 5b, 5c, 6, each run of 6b, 8, 9) every kernel's counts are set
 to 0, and read just after; a path whose kernel never ran fails the script. The step
 kernel's count is of env steps it ran: a T-step launch or a graph replay of
 T steps counts T, a graph capture 1 (its warm-up launch); the profiled
@@ -1201,6 +1212,9 @@ def main():
     # ---- 8. the gymnasium surfaces and the renderer feed ---------------------------
     report["surfaces"], gym_launches = surfaces(zero_counts, nan_bit_mismatches)
 
+    # ---- 9. multi-device: the sharded farm and train step --------------------------
+    report["sharded"], sharded_launches = sharded(here, load_tool, zero_counts)
+
     nb = report["numbers"]["mixed4"]
     kernels = [{"name": fs.KERNEL, "route": "cuda",
                 "source": "heligym_tpu_torch/csrc/fused_step.cu",
@@ -1212,7 +1226,8 @@ def main():
                                      "randomized": band_launches,
                                      "evaluation": eval_launches,
                                      "distill": distill_launches,
-                                     "gym": gym_launches},
+                                     "gym": gym_launches,
+                                     "sharded": sharded_launches},
                 "max_abs_err": max_abs_err, "ms": nb["kernel_ms"],
                 "plain_ms": nb["plain_ms"], "bound_ms": nb["bound_ms"],
                 "bound_by": nb["bound_by"], "library_ms": None,
@@ -1653,6 +1668,76 @@ def surfaces(zero_counts, nan_bit_mismatches):
     report["phase_s"] = time.perf_counter() - t_phase
     print(f"[gym] phase 8: {report['phase_s']:.1f} s, {fs.launches} step-kernel steps")
     return report, fs.launches
+
+
+def sharded(here, load_tool, zero_counts):
+    """Phase 9: the hover4k stage-1 train step sharded over ranks
+    (`tools/torch_sharded_step.py`). Returns (report, step-kernel steps of
+    the sharded runs, summed over their ranks)."""
+    import subprocess
+    import torch
+    from heligym_tpu_torch.ops.cuda import fused_step as fs
+
+    tool = load_tool("torch_sharded_step")
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"[sharded] compute mode: {mode} (two processes share the card outside the "
+          f"exclusive modes)")
+    out = os.path.join(here, "build", "chip_smoke", "sharded")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    opts = {"num_envs": N_ENVS, "rollout_steps": ROLLOUT_STEPS, "cpu": False,
+            "same_card": True, "save": None}
+    t_phase = time.perf_counter()
+    # today's learner, no mesh: what the sharded runs are held against
+    base = tool.step_results(torch.device("cuda", 0), opts, None)
+    print(tool.timing_line(base, "one process, no mesh"))
+    # (a) NCCL, one rank on cuda:0, in this process
+    zero_counts()
+    one = tool.run_rank(0, 1, {**opts, "backend": "nccl",
+                               "address": f"localhost:{tool.free_port()}"},
+                        os.path.join(out, "nccl"))
+    launches_a = fs.launches
+    print(tool.timing_line(one, "(a) 1 rank, NCCL"))
+    # (b) gloo, two ranks on the same card, spawned
+    save = os.path.join(out, "gloo", "sharded.npz")
+    two = tool.run_ranks(2, {**opts, "backend": "gloo", "save": save,
+                             "address": f"localhost:{tool.free_port()}"},
+                         os.path.join(out, "gloo"))
+    for r, res in enumerate(two):
+        print(tool.timing_line(res, f"(b) rank {r}/2, gloo on one card"))
+    print("[sharded] gloo on one card carries every all-reduce through the host: these "
+          "are not multi-card numbers")
+    rep_a, fails = tool.compare(base, [one], "(a) NCCL 1 rank vs no mesh")
+    rep_b, fails_b = tool.compare(one, two, "(b) gloo 2 ranks vs (a)")
+    rep_b["save_restore_bit_equal"] = tool.check_save(save, two, torch.device("cuda", 0))
+    for label, rep in (("(a) NCCL, 1 rank vs no mesh", rep_a),
+                       ("(b) gloo, 2 ranks vs (a)", rep_b)):
+        print(f"[check] sharded {label}: rollout discrete streams equal "
+              f"{rep['discrete_equal']}, floats max |diff| {rep['rollout_max_abs_diff']:.3e} "
+              f"(bit-equal {rep['rollout_bit_equal']}); params {rep['params_rel_err']:.3e}, "
+              f"mu {rep['mu_rel_err']:.3e}, nu {rep['nu_rel_err']:.3e} of their scale "
+              f"(tolerance {tool.REL_TOL:g}); metrics max |diff| "
+              f"{rep['metric_max_abs_diff']:.3e}; farm_metrics {rep['farm_metrics']}; "
+              f"generators equal {rep['generators_equal']}")
+    print(f"[check] sharded (b): a 2-rank save restored in one process bit-equal to the "
+          f"ranks' farms, rank 0's parameters and Adam {rep_b['save_restore_bit_equal']}")
+    fails += fails_b
+    if not rep_b["save_restore_bit_equal"]:
+        fails.append("(b): the 2-rank save, restored in one process, differs")
+    launches = launches_a + sum(int(r["launches"]) for r in two)
+    if int(one["launches"]) == 0 or any(int(r["launches"]) == 0 for r in two):
+        fails.append("a rank of the sharded step ran no step-kernel step")
+    if fails:
+        fail("sharded: " + "; ".join(fails))
+    report = {"reference": tool.summary(base), "nccl_1rank": tool.summary(one),
+              "gloo_2ranks": [tool.summary(r) for r in two], "check_a": rep_a,
+              "check_b": rep_b, "compute_mode": mode,
+              "phase_s": time.perf_counter() - t_phase}
+    print(f"[sharded] phase 9: {report['phase_s']:.1f} s, {launches} step-kernel steps "
+          f"on the sharded runs ({launches_a} in (a), "
+          f"{[int(r['launches']) for r in two]} on (b)'s ranks)")
+    return report, launches
 
 
 def rows_of(rows, name):

@@ -4,6 +4,15 @@ Batched 6-DOF helicopter flight environments on torch tensors, with the whole
 env step fused into one hand-written CUDA kernel (`ops/cuda/fused_step.py`).
 Entry points run on the CUDA card unless the caller passes `device="cpu"`.
 
+Modules: `envs` (the env, the tasks, the trim, the vector env, the
+gymnasium facades), `ops` (the physics, terrain and Dryden wind; `ops/cuda`
+the kernels and their builds), `learner` (the network, PPO, the trainer's
+command line, the evaluator, the scripted expert, distillation), `parallel`
+(process groups, env meshes, the sharded farm: one process per card over
+`torch.distributed`), `render` (top-down, terminal and native renderers),
+`models` (airframe parameters), `utils`, `convert` (to and from the JAX
+package's arrays and checkpoints).
+
 Where gymnasium is installed, importing the package registers the gymnasium
 ids `heligym_tpu_torch/<Name>-v0` for the names in `ENV_IDS`
 (`envs/gym_api.py`), beside the JAX package's unprefixed ids. Where it is

@@ -283,15 +283,19 @@ CUresult encode(CUtensorMap* map, CUtensorMapDataType type, const void* a, int S
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// Lets the kernel take up to kMaxSmem of dynamic shared memory (once).
+// Lets the kernel take up to kMaxSmem of dynamic shared memory on the
+// current device (the attribute is per device: once for each).
 template <bool kTma>
 cudaError_t allow_smem() {
-  static bool done = false;
-  if (done) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(gather_axis0_tile_kernel<kTma>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kMaxSmem);
-  done = err == cudaSuccess;
+  constexpr int kMaxDevices = 64;
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(gather_axis0_tile_kernel<kTma>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (dev < kMaxDevices) done[dev] = err == cudaSuccess;
   return err;
 }
 

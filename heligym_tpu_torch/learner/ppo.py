@@ -15,6 +15,21 @@ Where the JAX learner passes a flax parameter tree, the port passes the
 them in place; where it passes a PRNG key, the port passes a
 `torch.Generator` on the env's device. The random streams differ from JAX's,
 so a resume across packages is exact in everything but the random draws.
+
+With a mesh (`PPOLearner(env, config, mesh)`, `parallel/mesh.py`) the
+learner is one rank of a multi-process run, one process per card: the farm
+is split along the env axis over the mesh's `env` dimension, the network and
+Adam's state are replicated, and the train step keeps the semantics of the
+JAX step over the GLOBAL batch: every random draw is of the global block
+from a generator held in the same state on every rank, each rank keeping
+its rows (the rollout's Dryden noise, the policy's action noise, the start
+conditions); the epoch's shuffle is one permutation of the global samples
+and each rank takes the ones it holds; the advantage normalisation, every
+mean of the loss, the KL stop, the observation statistics and the metrics
+are global, through all-reduces; the gradients are summed over the ranks
+in one flat bucket per minibatch, before the clip by global norm. No
+collective runs inside the collector's CUDA graph. Without a mesh the
+learner is one process holding the whole farm.
 """
 from __future__ import annotations
 
@@ -30,6 +45,7 @@ import torch
 from ..envs.env import EnvState, HeliEnv
 from ..envs.vector import VectorHeliEnv
 from ..ops.state import HELI_STATE_FIELDS, WIND_STATE_FIELDS
+from ..parallel.mesh import all_reduce, assert_replicated, gather_rows, shard_rows
 from .networks import ActorCritic, gaussian_entropy, gaussian_log_prob, obs_scales
 from .optim import AdamState, adam_init, apply_step
 
@@ -181,9 +197,12 @@ def _f32(x) -> np.float32:
 
 
 class PPOLearner:
-    """PPO for a HeliEnv, on the env's device."""
+    """PPO for a HeliEnv, on the env's device; with a `mesh`, this rank's
+    part of a run sharded over the mesh's env dimension (module docstring).
+    `config.num_envs` is the global farm size, which the env dimension must
+    divide."""
 
-    def __init__(self, env: HeliEnv, config: PPOConfig = PPOConfig()):
+    def __init__(self, env: HeliEnv, config: PPOConfig = PPOConfig(), mesh=None):
         if not config.use_fused_rollout:
             raise ValueError("the port always collects through the fused step; "
                              "use_fused_rollout must be True")
@@ -191,7 +210,14 @@ class PPOLearner:
             raise ValueError(f"shuffle must be 'perm' or 'roll', not {config.shuffle!r}")
         self.env = env
         self.config = config
-        self.venv = VectorHeliEnv(env, config.num_envs, auto_reset=True)
+        self.mesh = mesh
+        # this rank's rows of the global farm (all of it without a mesh)
+        self.rows = shard_rows(config.num_envs, mesh)
+        self.local_envs = self.rows.stop - self.rows.start
+        self.shards = config.num_envs // self.local_envs
+        # the rank that prints, evaluates and writes checkpoints
+        self.is_main = mesh is None or torch.distributed.get_rank() == 0
+        self.venv = VectorHeliEnv(env, self.local_envs, auto_reset=True)
         # MixedTask: the policy must know which task each env is on, so a
         # task one-hot from EnvState.task_id is appended to the network
         # input (task_dim = 0 on single-task envs: nothing changes).
@@ -221,9 +247,16 @@ class PPOLearner:
         `cond_sampler`) the farm's start conditions. `cond_sampler(generator,
         n)` switches the farm to per-env initial conditions through the
         batched Newton trim (`VectorHeliEnv.reset_randomized`); `task_ids`
-        (num_envs,) assigns MixedTask sub-tasks per env."""
+        (num_envs,) assigns MixedTask sub-tasks per env. With a mesh every
+        rank makes the same network and generators (checked by one
+        all-reduce of a digest), draws the global `num_envs` conditions and
+        trims and keeps its own rows, and keeps its rows of `task_ids`."""
         net = self.make_network(generator)
         dev = self.env.device
+        if self.mesh is not None:
+            assert_replicated(b"".join(p.detach().cpu().numpy().tobytes()
+                                       for p in self.param_list(net)),
+                              self.mesh, "the initial network", dev)
 
         def device_generator():
             gen = torch.Generator(device=dev)
@@ -234,14 +267,42 @@ class PPOLearner:
             return gen
         gen = device_generator()
         if cond_sampler is not None:
-            es, _ = self.venv.reset_randomized(device_generator(), cond_sampler)
+            es, _ = self.venv.reset_randomized(device_generator(),
+                                               self._own_conditions(cond_sampler))
         else:
             es, _ = self.venv.reset(trim_cond)
         if task_ids is not None:
-            es = self.venv.assign_tasks(es, task_ids)
+            es = self.venv.assign_tasks(es, self._own_rows(task_ids))
         return TrainState(params=net, env_state=es, update_count=0,
                           obs_stats=ObsStats.init(dev),
                           opt_state=adam_init(self.param_list(net)), generator=gen)
+
+    def _own_rows(self, x):
+        """This rank's rows of a per-env array of the global farm."""
+        x = torch.as_tensor(x)
+        if x.shape[0] != self.config.num_envs:
+            raise ValueError(f"expected {self.config.num_envs} rows (the global "
+                             f"farm), got {tuple(x.shape)}")
+        return x[self.rows]
+
+    def _own_conditions(self, cond_sampler):
+        """`cond_sampler` as this rank draws it: the global `num_envs`
+        conditions, then its own rows, so that every rank's generator makes
+        the same draws and a shard's trim is the global trim's rows (the
+        batched trim stops per env)."""
+        n = self.config.num_envs
+
+        def sampler(generator, _):
+            return {k: (v[self.rows] if torch.is_tensor(v) and v.dim() and v.shape[0] == n
+                        else v) for k, v in cond_sampler(generator, n).items()}
+        return sampler
+
+    def _noise(self, shape, generator, device) -> torch.Tensor:
+        """Standard normal noise of `shape` for this rank's envs (leading
+        axis): this rank's rows of one draw of the global block."""
+        full = torch.randn((self.config.num_envs,) + tuple(shape[1:]),
+                           generator=generator, device=device)
+        return full[self.rows]
 
     @staticmethod
     def param_list(net: ActorCritic) -> List[torch.Tensor]:
@@ -288,12 +349,17 @@ class PPOLearner:
     def _merge_stats(self, stats: ObsStats, obs) -> ObsStats:
         """Chan parallel merge of one rollout's scaled-obs statistics into the
         running stats (population variance). Non-finite obs (blowup steps)
-        are zeroed out of the batch rather than poisoning the stats."""
+        are zeroed out of the batch rather than poisoning the stats. With a
+        mesh the batch is the global rollout: its count, sums and squared
+        deviations are summed over the ranks (two all-reduces)."""
         x = obs.reshape(-1, obs.shape[-1]) / self._scales
         x = torch.clamp(torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0),
                         -50.0, 50.0)
-        nb = float(x.shape[0])
-        mb, vb = x.mean(0), x.var(0, correction=0)
+        s = self._reduce(torch.cat([x.sum(0), x.new_tensor([float(x.shape[0])])]))
+        nb = s[-1]
+        mb = s[:-1] / nb
+        # the population variance, in two passes as jnp.var
+        vb = self._reduce(((x - mb) ** 2).sum(0)) / nb
         n = stats.count + nb
         delta = mb - stats.mean
         mean = stats.mean + delta * (nb / n)
@@ -331,8 +397,7 @@ class PPOLearner:
             params, stats, cap, toh = p
             mean, log_std, value = params(self._net_in(obs, stats, toh))
             log_std = torch.clamp(log_std, max=cap)
-            noise = torch.randn(mean.shape, generator=generator,
-                                device=mean.device)
+            noise = self._noise(mean.shape, generator, mean.device)
             action = mean + torch.exp(log_std) * noise
             log_prob = gaussian_log_prob(mean, log_std, action)
             return (torch.clamp(self.act_bias + action, -1.0, 1.0),
@@ -346,17 +411,21 @@ class PPOLearner:
         the physics in one CUDA kernel per step, the whole loop one CUDA
         graph replay on the card (`graphed=False`: the eager loop); its
         plain version on CPU tensors. `cap` is a 0-d tensor, so that a new
-        ceiling needs no new capture."""
+        ceiling needs no new capture. The Dryden noise is this rank's
+        columns of the global (T, 3, num_envs) draw, made here before the
+        policy's draws as the rollout would make its own."""
         from ..ops.cuda.fused_step import build_fused_policy_rollout
 
+        cfg = self.config
         if self._fused_rollout is None:
             self._fused_rollout = build_fused_policy_rollout(
-                self.env, self.config.num_envs, self.config.rollout_steps,
-                self._policy_fn())
+                self.env, self.local_envs, cfg.rollout_steps, self._policy_fn())
         toh = self._task_oh(es.task_id)          # (B, K); static per rollout
+        eta = (torch.randn((cfg.rollout_steps, 3, cfg.num_envs), generator=generator,
+                           device=es.obs.device) * (1.0 / self.env.dt) ** 0.5)[..., self.rows]
         with _fp32_matmuls():
             es, traj = self._fused_rollout(es, (params, stats, cap, toh), generator,
-                                           graphed=graphed)
+                                           eta_seq=eta, graphed=graphed)
         with torch.no_grad(), _fp32_matmuls():
             # the terminating step of a blown-up env can carry a non-finite
             # reward; sanitize so one env cannot poison a whole batch
@@ -455,31 +524,40 @@ class PPOLearner:
 
     # ------------------------------------------------------------- update
     def _loss(self, params: ActorCritic, batch: Transition, advantages, returns,
-              stats, ent_coef, cap):
+              stats, ent_coef, cap, norm=None):
         """The clipped PPO loss of one minibatch and its metrics; `cap` is
-        the log-std ceiling (a 0-d tensor)."""
+        the log-std ceiling (a 0-d tensor). `norm` (mean, std, size): the
+        advantage mean and population std of the whole minibatch, and its
+        size, when `batch` is this rank's part of a minibatch split over
+        ranks; every mean is then this rank's sum over the whole size, so
+        that the sums over the ranks are the minibatch's loss and metrics.
+        None: `batch` is the whole minibatch."""
         cfg = self.config
+        if norm is None:
+            # jnp.std: the population standard deviation
+            norm = (advantages.mean(), advantages.std(correction=0), advantages.shape[0])
+        adv_mean, adv_std, size = norm
+        avg = lambda x: x.sum() / size
         mean, log_std, value = params(self._net_in(batch.obs, stats, batch.task_oh))
         log_std = torch.minimum(log_std, torch.as_tensor(cap, dtype=log_std.dtype,
                                                          device=log_std.device))
         log_prob = gaussian_log_prob(mean, log_std, batch.action)
         ratio = torch.exp(log_prob - batch.log_prob)
-        # jnp.std: the population standard deviation
-        adv = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+        adv = (advantages - adv_mean) / (adv_std + 1e-8)
         pg1 = ratio * adv
         pg2 = torch.clamp(ratio, 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps) * adv
-        pg_loss = -torch.minimum(pg1, pg2).mean()
+        pg_loss = -avg(torch.minimum(pg1, pg2))
         if cfg.vf_clip_eps > 0:
             v_clipped = batch.value + torch.clamp(value - batch.value,
                                                   -cfg.vf_clip_eps, cfg.vf_clip_eps)
-            v_loss = 0.5 * torch.maximum((value - returns) ** 2,
-                                         (v_clipped - returns) ** 2).mean()
+            v_loss = 0.5 * avg(torch.maximum((value - returns) ** 2,
+                                             (v_clipped - returns) ** 2))
         else:
-            v_loss = 0.5 * ((value - returns) ** 2).mean()
-        ent = gaussian_entropy(log_std).mean()
+            v_loss = 0.5 * avg((value - returns) ** 2)
+        ent = avg(gaussian_entropy(log_std))
         total = pg_loss + cfg.vf_coef * v_loss - ent_coef * ent
         with torch.no_grad():
-            approx_kl = ((ratio - 1.0) - torch.log(ratio)).mean()
+            approx_kl = avg((ratio - 1.0) - torch.log(ratio))
         return total, {"pg_loss": pg_loss.detach(), "v_loss": v_loss.detach(),
                        "entropy": ent.detach(), "approx_kl": approx_kl}
 
@@ -495,13 +573,22 @@ class PPOLearner:
                       flat: Transition, advantages, returns, stats, ent_coef, lr,
                       cap, actor_scale=None, generator=None, idx=None):
         """One epoch of minibatch steps over the flattened rollout, the
-        parameters updated in place. `idx` (n,) is the epoch's shuffle
-        (injected by tests, to reproduce JAX's draw); by default a
-        permutation ("perm") or a circular shift ("roll") drawn from
-        `generator`. `mb = n // minibatches`, so a remainder is dropped.
-        Returns the optimizer state and each metric per minibatch."""
+        parameters updated in place. `idx` (n,) is the epoch's shuffle of
+        the global T * B samples, in the flat order t * B + b (injected by
+        tests, to reproduce JAX's draw); by default a permutation ("perm")
+        or a circular shift ("roll") drawn from `generator`. `mb = n //
+        minibatches`, so a remainder is dropped. Returns the optimizer state
+        and each metric per minibatch.
+
+        `flat`, `advantages` and `returns` are this rank's (T * B/R, flat
+        order t * B/R + b; all of them without a mesh): each minibatch step
+        takes the samples of its global slice that this rank holds,
+        normalises their advantages by the slice's global mean and std (two
+        all-reduces per epoch) and sums the gradients and metrics over the
+        ranks (one all-reduce per step), so that the KL stop and the clip
+        see the global step."""
         cfg = self.config
-        n = advantages.shape[0]
+        n = advantages.shape[0] * self.shards        # the global sample count
         dev = advantages.device
         if idx is None:
             if cfg.shuffle == "perm":
@@ -509,19 +596,23 @@ class PPOLearner:
             else:           # roll: out[i] = x[(i - shift) mod n]
                 shift = torch.randint(0, n, (), generator=generator, device=dev)
                 idx = torch.remainder(torch.arange(n, device=dev) - shift, n)
-        mix = lambda x: x.index_select(0, idx)
+        mb = n // cfg.minibatches
+        order, counts = self._own_samples(idx, mb)
+        mix = lambda x: x.index_select(0, order)
         flat_r = flat.map(mix)
         adv_r, ret_r = mix(advantages), mix(returns)
-        mb = n // cfg.minibatches
+        adv_mean, adv_std = self._advantage_norms(adv_r, counts, mb)
         leaves = self.param_list(params)
         scaled = None if actor_scale is None else self._actor_indices(params)
         lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
-        metrics = []
-        for i in range(cfg.minibatches):
-            sl = lambda x: x[i * mb:(i + 1) * mb]
-            loss, aux = self._loss(params, flat_r.map(sl), sl(adv_r), sl(ret_r),
-                                   stats, ent_coef, cap)
-            grads = torch.autograd.grad(loss, leaves)
+        metrics, at = [], 0
+        for i, count in enumerate(counts):
+            sl = lambda x: x[at:at + count]
+            loss, aux = self._loss(params, flat_r.map(sl), sl(adv_r), sl(ret_r), stats,
+                                   ent_coef, cap, (adv_mean[i], adv_std[i], mb))
+            loss, aux, grads = self._sum_over_ranks(
+                loss, aux, torch.autograd.grad(loss, leaves))
+            at += count
             step_lr = lr
             if cfg.target_kl > 0:
                 # KL early stop: once this epoch has drifted past target_kl,
@@ -532,6 +623,53 @@ class PPOLearner:
                                    cfg.max_grad_norm, scaled, actor_scale)
             metrics.append({"loss": loss.detach(), **aux})
         return opt_state, {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+
+    def _own_samples(self, idx, mb: int) -> Tuple[torch.Tensor, List[int]]:
+        """The local flat indices of the samples this rank holds among the
+        `minibatches` slices of `mb` of the global shuffle `idx`, in the
+        shuffle's order, and how many fall in each slice. With one shard
+        these are the slices themselves; with more, the counts cost one
+        host sync."""
+        cfg = self.config
+        sel = torch.as_tensor(idx, device=self.env.device)[:cfg.minibatches * mb]
+        if self.shards == 1:
+            return sel, [mb] * cfg.minibatches
+        width, lo = self.local_envs, self.rows.start
+        t, b = sel // cfg.num_envs, sel % cfg.num_envs
+        mine = (b >= lo) & (b < lo + width)
+        counts = mine.reshape(cfg.minibatches, mb).sum(1).tolist()
+        return (t * width + (b - lo))[mine], counts
+
+    def _advantage_norms(self, adv_r, counts: List[int], mb: int):
+        """Each minibatch's advantage mean and population std over the
+        global minibatch (two passes, as `jnp.std`; one all-reduce each),
+        from this rank's advantages in the shuffle's order, `counts` of
+        them in each minibatch."""
+        parts = torch.split(adv_r, counts)
+        means = self._reduce(torch.stack([p.sum() for p in parts])) / mb
+        sq = torch.stack([((p - m) ** 2).sum() for p, m in zip(parts, means)])
+        return means, torch.sqrt(self._reduce(sq) / mb)
+
+    def _sum_over_ranks(self, loss, aux, grads):
+        """The loss, its metrics and the gradients of a minibatch step
+        summed over the ranks: one flat bucket, one all-reduce (nothing to
+        sum without a mesh)."""
+        if self.mesh is None:
+            return loss, aux, grads
+        keys = ("pg_loss", "v_loss", "entropy", "approx_kl")
+        bucket = torch.cat([g.reshape(-1) for g in grads]
+                           + [torch.stack([loss.detach()] + [aux[k] for k in keys])])
+        parts = torch.split(self._reduce(bucket), [g.numel() for g in grads]
+                            + [1 + len(keys)])
+        tail = parts[-1]
+        return (tail[0], dict(zip(keys, tail[1:])),
+                [p.view_as(g) for p, g in zip(parts, grads)])
+
+    def _reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """`t` reduced in place over the ranks of the env mesh
+        (`parallel.mesh.all_reduce`), and returned; `t` itself without a
+        mesh. Every collective of the train step goes through here."""
+        return all_reduce(t, self.mesh, op)
 
     def schedules(self, update_count: int):
         """(lr, entropy coefficient, log-std ceiling, actor scale) of the
@@ -583,32 +721,46 @@ class PPOLearner:
 
     def _rollout_metrics(self, traj: Transition) -> Dict[str, torch.Tensor]:
         """Reward, in-tolerance, episode-end, success and failure fractions
-        of the rollout; per sub-task on a MixedTask."""
-        m = {"reward_mean": traj.reward.mean(), "succ_step_frac": traj.succ_step.mean()}
+        of the rollout; per sub-task on a MixedTask. Sums and counts, then
+        the ratios: with a mesh the sums are of every rank's envs (one
+        all-reduce)."""
         ended = torch.maximum(traj.terminated, traj.truncated)
-        n_ep = torch.clamp(ended.sum(), min=1.0)
-        m["done_frac"] = ended.mean()
         # terminated & ~failed == the env's success criterion fired
-        m["success_ep_frac"] = (traj.terminated * (1.0 - traj.failed)).sum() / n_ep
-        m["fail_ep_frac"] = traj.failed.sum() / n_ep
-        if getattr(self.env.task, "tasks", None):
-            steps = float(traj.reward.shape[0])
+        won = traj.terminated * (1.0 - traj.failed)
+        sums = [traj.reward.sum(), traj.succ_step.sum(), ended.sum(), won.sum(),
+                traj.failed.sum(), traj.reward.new_tensor(float(traj.reward.numel()))]
+        per_task = bool(getattr(self.env.task, "tasks", None))
+        if per_task:
             for i in range(self.task_dim):
                 mask = traj.task_oh[0, :, i][None, :]         # (1, B)
-                ep_i = torch.clamp((ended * mask).sum(), min=1.0)
-                m[f"success_ep_frac_t{i}"] = (
-                    traj.terminated * (1.0 - traj.failed) * mask).sum() / ep_i
-                m[f"in_tol_t{i}"] = (traj.succ_step * mask).sum() \
-                    / torch.clamp(mask.sum() * steps, min=1.0)
+                sums += [(ended * mask).sum(), (won * mask).sum(),
+                         (traj.succ_step * mask).sum(), mask.sum()]
+        s = self._reduce(torch.stack(sums))
+        n_ep = torch.clamp(s[2], min=1.0)
+        m = {"reward_mean": s[0] / s[5], "succ_step_frac": s[1] / s[5],
+             "done_frac": s[2] / s[5], "success_ep_frac": s[3] / n_ep,
+             "fail_ep_frac": s[4] / n_ep}
+        if per_task:
+            steps = float(traj.reward.shape[0])
+            for i in range(self.task_dim):
+                e, w, inside, count = s[6 + 4 * i:10 + 4 * i]
+                m[f"success_ep_frac_t{i}"] = w / torch.clamp(e, min=1.0)
+                m[f"in_tol_t{i}"] = inside / torch.clamp(count * steps, min=1.0)
         return m
 
     def train_step(self, ts: TrainState, graphed: Optional[bool] = None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One PPO iteration, the counterpart of the JAX package's
         `train_step_fn`: `collect` (on the card one graph replay of the
-        collector) with the train state's generator, then `update`."""
+        collector) with the train state's generator, then `update`. With a
+        mesh, one all-reduce then checks that the generator's state is the
+        same on every rank."""
         ts, traj = self.collect(ts, ts.generator, graphed)
-        return self.update(ts, traj)
+        ts, metrics = self.update(ts, traj)
+        if self.mesh is not None:
+            assert_replicated(ts.generator.get_state().numpy().tobytes(), self.mesh,
+                              "the generator's state", self.env.device)
+        return ts, metrics
 
     # -------------------------------------------------------- checkpointing
     def _checkpoint_tree(self, net: ActorCritic, adam: dict, env: dict,
@@ -670,7 +822,11 @@ class PPOLearner:
         format: its `load_npz` reads the file back against a template of the
         same configuration. The generator's state rides beside the leaves
         ("generator_state"), so that the port's own resume continues its
-        random streams; the `key` leaves are derived from it."""
+        random streams; the `key` leaves are derived from it.
+
+        With a mesh every rank must call it: the farm's rows are put
+        together from every rank (one all-reduce, bit for bit), and the main
+        rank writes the file of the global farm."""
         from ..convert import adam_state_to_numpy, env_state_to_numpy
         from ..utils.checkpoint import save_npz
 
@@ -678,6 +834,13 @@ class PPOLearner:
             raise ValueError("save needs a full TrainState: optimizer state, env "
                              "farm and generator")
         env = env_state_to_numpy(ts.env_state)
+        if self.mesh is not None:
+            names = list(env)
+            env = dict(zip(names, gather_rows([env[k] for k in names],
+                                              self.config.num_envs, self.mesh,
+                                              self.env.device)))
+            if not self.is_main:
+                return
         key, env["key"] = self._keys_of(ts.generator, env["steps"].shape[0])
         s = ts.obs_stats
         stats = {k: getattr(s, k).detach().cpu().numpy() for k in ("mean", "var", "count")}
@@ -694,7 +857,8 @@ class PPOLearner:
         `farm_size`: the farm size the checkpoint must have (a scale-up
         resume's check); None: the template's. The generator continues the
         port's saved stream where the file holds one for a generator of the
-        template's kind; otherwise it is seeded from the `key` leaf."""
+        template's kind; otherwise it is seeded from the `key` leaf. With a
+        mesh, sizes are of the global farm, and each rank keeps its rows."""
         from ..convert import (adam_state_from_numpy, env_state_from_numpy,
                                obs_stats_from_numpy, policy_from_numpy)
         from ..utils.checkpoint import TreedefError, load_train_state_npz
@@ -714,13 +878,15 @@ class PPOLearner:
                                f"TrainState: {ck['treedef'][:80]}...")
         stored = ck["env_state"]["steps"].shape[0]
         if farm_size is None and template is not None and template.env_state is not None:
-            farm_size = template.env_state.steps.shape[0]
+            farm_size = template.env_state.steps.shape[0] * self.shards
         if farm_size is not None and stored != farm_size:
             raise ValueError(f"checkpoint {path} holds a farm of {stored} envs, not "
                              f"{farm_size} (a scale-up resume takes resume_num_envs)")
         es = None
         if with_farm or (template is not None and template.env_state is not None):
-            es = env_state_from_numpy(ck["env_state"], dev)
+            rows = shard_rows(stored, self.mesh)
+            es = env_state_from_numpy({k: v[rows] for k, v in ck["env_state"].items()},
+                                      dev)
         gen = torch.Generator(device=dev)
         state = ck["extra"].get("generator_state")
         if state is not None and state.shape == tuple(gen.get_state().shape):
@@ -769,7 +935,13 @@ class PPOLearner:
         With `checkpoint_path`, the state is saved every `checkpoint_every`
         updates and at the end, and to `checkpoint_path + ".best.npz"`
         whenever the tracked success beats its best, checked every update
-        (or every evaluation)."""
+        (or every evaluation).
+
+        With a mesh every rank runs the loop; the main rank alone prints,
+        runs the evaluator (on its own device) and writes the checkpoints,
+        and broadcasts each evaluation's success, so that every rank takes
+        the same best-checkpoint decision. Only the main rank's history
+        holds the evaluations."""
         ts = self.init(generator, trim_cond, task_ids, cond_sampler=cond_sampler)
         if resume_from and resume_num_envs and resume_num_envs != self.config.num_envs:
             small = self.restore(resume_from, farm_size=resume_num_envs)
@@ -787,7 +959,7 @@ class PPOLearner:
             with torch.no_grad():
                 ts.params.log_std.fill_(set_log_std)
         evaluator = None
-        if eval_every:
+        if eval_every and self.is_main:
             from .evaluate import make_evaluator
             eval_tids = (np.arange(eval_episodes) % (int(np.max(task_ids)) + 1)
                          if task_ids is not None else None)
@@ -800,50 +972,65 @@ class PPOLearner:
         best_succ = -1.0
         for i in range(num_updates):
             ts, metrics = self.train_step(ts)
-            if evaluator is not None and ((i + 1) % eval_every == 0
-                                          or i == num_updates - 1):
-                # the same noise in every evaluation, so that they compare
-                ev = evaluator(ts, torch.Generator(device=e_env.device).manual_seed(1234))
-                metrics = dict(metrics)
-                metrics.update({f"eval_{k}": v for k, v in ev.items()
-                                if k != "episodes"})
-                s = ev["success_frac"]
-                # MixedTask: select on the worst sub-task, not the mean
-                per_task = [v for k, v in sorted(ev.items())
-                            if k.startswith("success_frac_t")]
-                if per_task:
-                    s = min(per_task)
-                    print(f"  eval @ update {i + 1}: det per-task "
-                          f"{[round(v, 3) for v in per_task]} "
-                          f"min={s:.3f} fail={ev['fail_frac']:.3f}", flush=True)
-                else:
-                    print(f"  eval @ update {i + 1}: det success={s:.3f} "
-                          f"fail={ev['fail_frac']:.3f}", flush=True)
+            if eval_every and ((i + 1) % eval_every == 0 or i == num_updates - 1):
+                s = None
+                if evaluator is not None:
+                    # the same noise in every evaluation, so that they compare
+                    ev = evaluator(ts, torch.Generator(device=e_env.device).manual_seed(1234))
+                    metrics = dict(metrics)
+                    metrics.update({f"eval_{k}": v for k, v in ev.items()
+                                    if k != "episodes"})
+                    s = ev["success_frac"]
+                    # MixedTask: select on the worst sub-task, not the mean
+                    per_task = [v for k, v in sorted(ev.items())
+                                if k.startswith("success_frac_t")]
+                    if per_task:
+                        s = min(per_task)
+                        print(f"  eval @ update {i + 1}: det per-task "
+                              f"{[round(v, 3) for v in per_task]} "
+                              f"min={s:.3f} fail={ev['fail_frac']:.3f}", flush=True)
+                    else:
+                        print(f"  eval @ update {i + 1}: det success={s:.3f} "
+                              f"fail={ev['fail_frac']:.3f}", flush=True)
+                s = self._from_main(s)
                 if checkpoint_path and s > best_succ:
                     best_succ = s
                     self.save(checkpoint_path + ".best.npz", ts)
-                    print(f"  saved best at update {i + 1} "
-                          f"(eval success={s:.3f})", flush=True)
+                    if self.is_main:
+                        print(f"  saved best at update {i + 1} "
+                              f"(eval success={s:.3f})", flush=True)
             # keep the peak-success policy, checked every update: PPO on an
             # unstable plant can unlearn a succeeding policy late in a run
-            if checkpoint_path and evaluator is None:
+            if checkpoint_path and not eval_every:
                 s = float(metrics["success_ep_frac"])
                 if s > max(best_succ, 0.0):
                     best_succ = s
                     self.save(checkpoint_path + ".best.npz", ts)
-                    print(f"  saved best at update {i + 1} (success_ep={s:.3f})",
-                          flush=True)
+                    if self.is_main:
+                        print(f"  saved best at update {i + 1} (success_ep={s:.3f})",
+                              flush=True)
             if (i + 1) % log_every == 0 or i == num_updates - 1:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["update"] = i + 1
                 history.append(m)
-                print(f"update {i+1}: reward={m['reward_mean']:.4f} "
-                      f"loss={m['loss']:.4f} kl={m['approx_kl']:.4f} "
-                      f"success_ep={m['success_ep_frac']:.3f} "
-                      f"fail_ep={m['fail_ep_frac']:.3f} "
-                      f"in_tol={m['succ_step_frac']:.3f}", flush=True)
+                if self.is_main:
+                    print(f"update {i+1}: reward={m['reward_mean']:.4f} "
+                          f"loss={m['loss']:.4f} kl={m['approx_kl']:.4f} "
+                          f"success_ep={m['success_ep_frac']:.3f} "
+                          f"fail_ep={m['fail_ep_frac']:.3f} "
+                          f"in_tol={m['succ_step_frac']:.3f}", flush=True)
             if checkpoint_path and (i + 1) % checkpoint_every == 0:
                 self.save(checkpoint_path, ts)
         if checkpoint_path:
             self.save(checkpoint_path, ts)
         return ts, history
+
+    def _from_main(self, value: Optional[float]) -> float:
+        """The main rank's `value` on every rank (one broadcast); `value`
+        itself without a mesh."""
+        if self.mesh is None:
+            return value
+        t = torch.tensor([0.0 if value is None else value], dtype=torch.float64,
+                         device=self.env.device)
+        torch.distributed.broadcast(t, src=0)
+        return float(t[0])

@@ -15,6 +15,14 @@ on a MixedTask batch (per-env task ids, round-robin). `--randomized-resets`,
 `--rand-start-alt` and `--rand-start-yaw` draw per-env initial conditions
 through the batched Newton trim at farm reset; each env's auto-reset then
 returns it to its own start.
+
+On several cards, one process per card under `torchrun`:
+
+    torchrun --standalone --nproc_per_node=N -m heligym_tpu_torch.learner.train ...
+
+Each rank takes `cuda:LOCAL_RANK` (or the CPU with `--cpu`, over gloo), the
+farm of `--num-envs` is split over the ranks (`parallel/`), and the main
+rank alone prints, evaluates and writes checkpoints.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import time
 from typing import Optional
@@ -139,8 +148,8 @@ def _parse_target(spec: str, env) -> dict:
     return updates
 
 
-def card_line() -> Optional[str]:
-    """The first card's name and power limit as `nvidia-smi --query-gpu=
+def card_line(index: int = 0) -> Optional[str]:
+    """Card `index`'s name and power limit as `nvidia-smi --query-gpu=
     name,power.limit --format=csv,noheader` prints them, or None."""
     try:
         res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -149,15 +158,36 @@ def card_line() -> Optional[str]:
     except (OSError, subprocess.TimeoutExpired):
         return None
     lines = res.stdout.strip().splitlines()
-    return lines[0] if res.returncode == 0 and lines else None
+    return lines[index] if res.returncode == 0 and index < len(lines) else None
 
 
-def describe_device(dev: torch.device) -> str:
+def describe_device(dev: torch.device, with_index: bool = False) -> str:
     """The device a run uses; a card as `nvidia-smi` names it, with its
-    power limit."""
+    power limit (and its index, with `with_index`)."""
     if dev.type != "cuda":
         return str(dev)
-    return f"cuda: {card_line() or torch.cuda.get_device_name(dev)}"
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    name = card_line(index) or torch.cuda.get_device_name(index)
+    return f"cuda:{index}: {name}" if with_index else f"cuda: {name}"
+
+
+def join_run(cpu: bool):
+    """Under `torchrun` (WORLD_SIZE > 1 in the environment): join the run
+    (`parallel.init_distributed`, NCCL on the cards, gloo with `cpu`) and
+    return (this rank's device, the env mesh, the devices of every rank);
+    otherwise (None, None, None)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        return None, None, None
+    from ..parallel import init_distributed, make_env_mesh
+    rank = int(os.environ["RANK"])
+    device = init_distributed(f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
+                              world, rank, local_rank=int(os.environ.get("LOCAL_RANK", rank)),
+                              cpu=cpu)
+    mesh = make_env_mesh()
+    names = [None] * world
+    torch.distributed.all_gather_object(names, describe_device(device, True))
+    return device, mesh, names
 
 
 def _band(spec: str):
@@ -378,7 +408,9 @@ def main(argv=None):
         task = TASKS[args.task]()
         label = args.task
 
-    env = HeliEnv.build("aw109", task=task, device="cpu" if args.cpu else None)
+    device, mesh, rank_devices = join_run(args.cpu)
+    is_main = mesh is None or torch.distributed.get_rank() == 0
+    env = HeliEnv.build("aw109", task=task, device=device or ("cpu" if args.cpu else None))
     if args.max_time is not None:
         env = env.replace(max_time=args.max_time)
         label += f"@T{args.max_time:g}"
@@ -419,8 +451,9 @@ def main(argv=None):
                          "without a vel field")
             vel_tn = vel * math.cos(course)
             vel_te = vel * math.sin(course)
-        print(f"vel shaping target: ({vel_tn:.1f}, {vel_te:.1f}) ft/s",
-              flush=True)
+        if is_main:
+            print(f"vel shaping target: ({vel_tn:.1f}, {vel_te:.1f}) ft/s",
+                  flush=True)
     track_amp, track_wl = 150.0, 2000.0
     if args.track_shaping:
         track_amp = getattr(env.task, "amplitude", track_amp)
@@ -449,10 +482,12 @@ def main(argv=None):
                     critic_warmup=args.critic_warmup,
                     std_cap_updates=args.std_cap_updates,
                     std_cap_final=args.std_cap_final)
-    learner = PPOLearner(env, cfg)
-    print(f"devices: [{describe_device(env.device)}]  task: {label}  "
-          f"envs: {cfg.num_envs}  steps/update: {cfg.num_envs * cfg.rollout_steps}  "
-          f"fused: {cfg.use_fused_rollout}", flush=True)
+    learner = PPOLearner(env, cfg, mesh=mesh)
+    if is_main:
+        print(f"devices: [{', '.join(rank_devices or [describe_device(env.device)])}]  "
+              f"task: {label}  envs: {cfg.num_envs}  "
+              f"steps/update: {cfg.num_envs * cfg.rollout_steps}  "
+              f"fused: {cfg.use_fused_rollout}", flush=True)
     if args.rand_start_yaw:
         cond_sampler = make_yaw_band_sampler(
             *_band(args.rand_start_yaw),
@@ -484,11 +519,14 @@ def main(argv=None):
                            if args.eval_start_band else None))
     dt = time.time() - t0
     total_steps = args.updates * cfg.num_envs * cfg.rollout_steps
-    print(f"trained {total_steps} env-steps in {dt:.1f}s "
-          f"({total_steps / dt:.0f} steps/s incl. learner)")
-    if args.metrics_out:
-        with open(args.metrics_out, "w") as f:
-            json.dump({"config": vars(args), "history": history}, f)
+    if is_main:
+        print(f"trained {total_steps} env-steps in {dt:.1f}s "
+              f"({total_steps / dt:.0f} steps/s incl. learner)")
+        if args.metrics_out:
+            with open(args.metrics_out, "w") as f:
+                json.dump({"config": vars(args), "history": history}, f)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

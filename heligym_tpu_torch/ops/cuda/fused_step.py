@@ -37,6 +37,7 @@ loop is one CUDA graph, replayed once per rollout).
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -777,7 +778,10 @@ def build_fused_policy_rollout(env: HeliEnv, num_envs: int, steps: int,
             eta_seq = torch.randn((steps, 3, num_envs), generator=generator,
                                   device=dev) * (1.0 / env.dt) ** 0.5
         eta_seq = eta_seq.contiguous()
-        with torch.no_grad():
+        # the capture, its side stream and the replay on the state's card,
+        # whichever card is current
+        with torch.no_grad(), (torch.cuda.device(dev) if on_card
+                               else contextlib.nullcontext()):
             if graphed:
                 return graphed_run(es, policy_params, generator, eta_seq)
             return eager(es, policy_params, generator, eta_seq)

@@ -679,3 +679,89 @@ def test_native_frame_from_card_state_equals_cpu():
             r.close()
         assert frames[0].dtype == np.uint8 and frames[0].ndim == 3
         np.testing.assert_array_equal(frames[0], frames[1])
+
+
+def _sharded_step_tool():
+    """tools/torch_sharded_step.py, which chip_smoke.py's phase 9 runs."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "tools", "torch_sharded_step.py")
+    spec = importlib.util.spec_from_file_location("torch_sharded_step", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+SHARDED_OPTS = {"num_envs": 1024, "rollout_steps": 16, "cpu": False, "same_card": True,
+                "save": None}
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_nccl_one_rank(tmp_path):
+    """A hover4k stage-1 train step (1024 envs x 16 steps, the checkpoint's
+    network and Adam state) on one NCCL rank of an env mesh against the
+    learner without a mesh: the rollout's discrete streams equal, its
+    floats, the parameters and moments, metrics, farm_metrics and generator
+    as `tools/torch_sharded_step.py` holds them; the step kernel ran."""
+    _need_card()
+    tool = _sharded_step_tool()
+    base = tool.step_results(torch.device("cuda", 0), SHARDED_OPTS, None)
+    one = tool.run_rank(0, 1, {**SHARDED_OPTS, "backend": "nccl",
+                               "address": f"localhost:{tool.free_port()}"}, str(tmp_path))
+    rep, fails = tool.compare(base, [one], "NCCL, 1 rank")
+    assert not fails, fails
+    assert rep["discrete_equal"] and int(one["launches"]) > 0
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_gloo_two_ranks_one_card(tmp_path):
+    """The same step on two gloo ranks spawned on one card (512 envs each)
+    against one process without a mesh, and the 2-rank save restored in one
+    process bit-equal to the ranks' farms and parameters."""
+    _need_card()
+    tool = _sharded_step_tool()
+    base = tool.step_results(torch.device("cuda", 0), SHARDED_OPTS, None)
+    save = str(tmp_path / "sharded.npz")
+    two = tool.run_ranks(2, {**SHARDED_OPTS, "backend": "gloo", "save": save,
+                             "address": f"localhost:{tool.free_port()}"}, str(tmp_path))
+    rep, fails = tool.compare(base, two, "gloo, 2 ranks")
+    assert not fails, fails
+    assert tool.check_save(save, two, torch.device("cuda", 0))
+    assert all(int(r["launches"]) > 0 for r in two)
+
+
+@pytest.mark.cuda
+def test_launches_on_a_card_that_is_not_current():
+    """With cuda:0 current, the gathers, a one-step launch and the graphed
+    collector on tensors of every other card run there: each gather equal
+    to `gather_plain`, the step to `fused_step_plain`, the graph replay to
+    the eager loop. Needs two cards."""
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from heligym_tpu_torch.learner import PPOConfig, PPOLearner
+    for k in range(1, torch.cuda.device_count()):
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", k)
+        x = torch.randn(1024, 1024, device=dev)
+        idx = torch.randint(0, 1024, (1024, 1024), device=dev, dtype=torch.int32)
+        for axis, fn in ((0, gather.gather_axis0), (1, gather.gather_axis1)):
+            assert torch.equal(fn(x, idx), gather.gather_plain(x, idx, axis)), (k, axis)
+        env = HeliEnv.build("aw109", task=HoverTask(), device=dev)
+        es, _ = VectorHeliEnv(env, 256).reset()
+        carry, init = fs.pack(es)
+        act = env.trim_result().action.to(dev).expand(256, 4).contiguous()
+        eta = torch.randn(3, 256, device=dev) * 7.0
+        got, want = fs.fused_step(env, carry, init, act, eta), \
+            fs.fused_step_plain(env, carry, init, act, eta)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), k
+        learner = PPOLearner(env, PPOConfig(num_envs=512, rollout_steps=8, hidden=(64, 64)))
+        ts = learner.init(torch.Generator().manual_seed(0))
+        _, graphed = learner.collect(ts, torch.Generator(device=dev).manual_seed(1),
+                                     graphed=True)
+        _, eager = learner.collect(ts, torch.Generator(device=dev).manual_seed(1),
+                                   graphed=False)
+        for f in ("obs", "action", "reward", "terminated"):
+            assert torch.equal(getattr(graphed, f), getattr(eager, f)), (k, f)
+        assert torch.cuda.current_device() == 0
