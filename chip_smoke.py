@@ -111,8 +111,21 @@ failure exits non-zero:
      scale, the metrics, `farm_metrics`, the generators' states, and a
      2-rank save restored in one process bit-equal; per rank, collect,
      update and its all-reduces by CUDA events;
+  10. a user airframe with a wing: `aw109_wing` (aw109 with a wing of five
+     times its horizontal tail's coefficients, at the centre of gravity)
+     written into build/chip_smoke/models/ and registered with
+     `register_model_path`; hover and the 4-task MixedTask built on it at
+     4096 envs from the port's host trim; the kernels' winged instantiation
+     held bit for bit against the plain version (hover: 30 steps and the
+     300-step dive with and without auto-reset; mixed4: 30 steps and the
+     dive), in one-step and T-step launches at every block size; one
+     graphed `PPOLearner.collect` of 64 steps and one `train_step` with
+     examples/hover4k_policy.npz's parameters on a fresh winged farm; the
+     rollout demo's work (examples/torch_rollout_demo.py, one T-step launch
+     of 500 steps); one `trace` of 3 collector steps, which must name the
+     winged step kernel; the winged launches timed beside their bounds;
 then one JSON line describing each kernel.
-Before each path (3, the bench, 4, 5, 5b, 5c, 6, each run of 6b, 8, 9) every kernel's counts are set
+Before each path (3, the bench, 4, 5, 5b, 5c, 6, each run of 6b, 8, 9, 10) every kernel's counts are set
 to 0, and read just after; a path whose kernel never ran fails the script. The step
 kernel's count is of env steps it ran: a T-step launch or a graph replay of
 T steps counts T, a graph capture 1 (its warm-up launch); the profiled
@@ -166,6 +179,7 @@ GYM_STEPS = 200                # steps of each id's single env
 GYM_CHECK = (0, 1, 100, 199)   # its steps held bit for bit against the plain version
 GYM_DIVE_MAX = 600             # the vector env's dive ends before this
 GYM_FRAMES = 5                 # frames timed per renderer
+TRACE_STEPS = 3                # collector steps in phase 10's trace
 # the committed policies scored in phase 6; `heads` are the gated ones
 EVALS = {
     "multitask4": dict(tasks=",".join(MIXED4), task="hover",
@@ -1215,6 +1229,10 @@ def main():
     # ---- 9. multi-device: the sharded farm and train step --------------------------
     report["sharded"], sharded_launches = sharded(here, load_tool, zero_counts)
 
+    # ---- 10. a user airframe with a wing ---------------------------------------------
+    report["winged"], winged_launches = winged(here, zero_counts, nan_bit_mismatches,
+                                               step_numbers, train_cfg)
+
     nb = report["numbers"]["mixed4"]
     kernels = [{"name": fs.KERNEL, "route": "cuda",
                 "source": "heligym_tpu_torch/csrc/fused_step.cu",
@@ -1227,7 +1245,8 @@ def main():
                                      "evaluation": eval_launches,
                                      "distill": distill_launches,
                                      "gym": gym_launches,
-                                     "sharded": sharded_launches},
+                                     "sharded": sharded_launches,
+                                     "winged": winged_launches},
                 "max_abs_err": max_abs_err, "ms": nb["kernel_ms"],
                 "plain_ms": nb["plain_ms"], "bound_ms": nb["bound_ms"],
                 "bound_by": nb["bound_by"], "library_ms": None,
@@ -1238,7 +1257,13 @@ def main():
                 "hover_rollout_ms_per_step":
                     report["numbers"]["hover"]["rollout_ms_per_step"],
                 "hover_rollout_bound_ms_per_step":
-                    report["numbers"]["hover"]["rollout_bound"]["bound_ms"]}]
+                    report["numbers"]["hover"]["rollout_bound"]["bound_ms"],
+                **{f"winged_{name}_{k}": v for name, nb in report["winged"]["numbers"].items()
+                   for k, v in (("ms", nb["kernel_ms"]), ("bound_ms", nb["bound_ms"]),
+                                ("plain_ms", nb["plain_ms"]),
+                                ("rollout_ms_per_step", nb["rollout_ms_per_step"]),
+                                ("rollout_bound_ms_per_step",
+                                 nb["rollout_bound"]["bound_ms"]))}}]
     for name in ("gather_axis0", "gather_axis1"):
         big = [r for r in rows_of(report["gather"], name)
                if (r["S"], r["L"]) == (1024, 1024)][0]
@@ -1737,6 +1762,198 @@ def sharded(here, load_tool, zero_counts):
     print(f"[sharded] phase 9: {report['phase_s']:.1f} s, {launches} step-kernel steps "
           f"on the sharded runs ({launches_a} in (a), "
           f"{[int(r['launches']) for r in two]} on (b)'s ranks)")
+    return report, launches
+
+
+def winged(here, zero_counts, nan_bit_mismatches, step_numbers, train_cfg):
+    """Phase 10: a user airframe with a wing, through `register_model_path`
+    to the kernels' winged instantiation. Returns (report, step-kernel steps
+    of its path)."""
+    import dataclasses
+    import torch
+    from heligym_tpu_torch.envs import VectorHeliEnv
+    from heligym_tpu_torch.learner import PPOLearner
+    from heligym_tpu_torch.learner.evaluate import build_env
+    from heligym_tpu_torch.models import register_model_path
+    from heligym_tpu_torch.ops.cuda import fused_step as fs
+    from heligym_tpu_torch.utils.profiling import trace
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    # the tests' user airframe (tests/torch_airframes.py), written anew here
+    spec = importlib.util.spec_from_file_location(
+        "torch_airframes", os.path.join(here, "tests", "torch_airframes.py"))
+    airframes = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(airframes)
+    airframe, wing = airframes.NAME, airframes.WING
+    models_dir = os.path.join(here, "build", "chip_smoke", "models")
+    shutil.rmtree(models_dir, ignore_errors=True)
+    os.makedirs(models_dir)
+    airframes.write_winged(models_dir)
+    register_model_path(models_dir)
+    t0 = time.perf_counter()
+    hover, _ = build_env("hover", None, "sea_alt=start", heli=airframe)
+    mixed, n_sub = build_env("hover", ",".join(MIXED4), "sea_alt=start,vel=60", heli=airframe)
+    tr, tr60 = hover.trim_result(), hover.trim_result({"ned_vel": [60.0, 0.0, 0.0]})
+    report = {"airframe": airframe, "wing": wing, "trims_s": time.perf_counter() - t0,
+              "trim_action": tr.action.tolist()}
+    wn = hover.params.WN
+    if not (fs.has_wing(hover) and fs.has_wing(mixed)) or \
+            (wn.ZUU, wn.ZUW, wn.ZMAX) != tuple(wing.values()):
+        fail(f"winged: {airframe} did not load with its wing ({wn})")
+    print(f"[winged] {airframe} from {models_dir}: WN ZUU {wn.ZUU} ZUW {wn.ZUW} ZMAX "
+          f"{wn.ZMAX}; host trims {report['trims_s']:.2f} s, hover trim action "
+          f"{[round(a, 4) for a in report['trim_action']]}")
+
+    # the winged kernels against the plain version, bit for bit, at every
+    # block size, in one-step launches stepping their own carry and in one
+    # T-step launch; the plain version runs once per case
+    rng = np.random.default_rng(10)
+    venv_h = VectorHeliEnv(hover, N_ENVS)
+    es_h, _ = venv_h.reset_from_trim(tr)
+    venv_m = VectorHeliEnv(mixed, N_ENVS)
+    es_m, _ = venv_m.reset_from_trim(tr60)
+    es_m = venv_m.assign_tasks(es_m, np.arange(N_ENVS) % n_sub)
+
+    def hold(label, env, es, action, steps, dive, auto_reset):
+        act = np.tile(action.cpu().numpy(), (steps, N_ENVS, 1))
+        act = (act + 0.02 * rng.standard_normal(act.shape)).astype(np.float32)
+        if dive:
+            act[..., 0] = -1.0
+        eta = (rng.standard_normal((steps, 3, N_ENVS)) * 50.0 ** 0.5).astype(np.float32)
+        act, eta = torch.from_numpy(act).to(dev), torch.from_numpy(eta).to(dev)
+        carry, init = fs.pack(es)
+        cp, xp = carry.clone(), []
+        with torch.no_grad():
+            for t in range(steps):
+                cp, x = fs.fused_step_plain(env, cp, init, act[t], eta[t], auto_reset)
+                xp.append(x)
+        xp = torch.stack(xp)
+        bits, kept = {}, fs.BLOCK
+        try:
+            for block in SWEEP_BLOCKS:
+                fs.BLOCK = block
+                ck, xk = carry.clone(), []
+                for t in range(steps):
+                    ck, x = fs.fused_step(env, ck, init, act[t], eta[t], auto_reset)
+                    xk.append(x)
+                cr, xr = fs.fused_rollout(env, carry, init, act, eta, auto_reset)
+                bits[block] = {"one_step": nan_bit_mismatches(ck, cp)
+                               + nan_bit_mismatches(torch.stack(xk), xp),
+                               "t_step": nan_bit_mismatches(cr, cp) + nan_bit_mismatches(xr, xp)}
+        finally:
+            fs.BLOCK = kept
+        torch.cuda.synchronize()
+        row = {"steps": steps, "dive": dive, "auto_reset": auto_reset,
+               "done_frac": float(xp[:, fs.CDONE].mean()), "bits": bits}
+        print(f"[check] winged {label}: kernel vs plain, {steps} steps at {N_ENVS} envs"
+              f"{' (dive)' if dive else ''}, auto_reset={auto_reset}: done fraction "
+              f"{row['done_frac']:.4f}; bits differing in carry and collect, one-step / "
+              f"T-step launch, by block: " + ", ".join(
+                  f"{b} {v['one_step']} / {v['t_step']}" for b, v in bits.items()))
+        if any(v for b in bits.values() for v in b.values()):
+            fail(f"winged {label}: the winged kernel differs from its plain version")
+        if dive and not bool(xp[:, fs.CDONE].any()):
+            fail(f"winged {label}: the dive never terminated")
+        return row
+
+    report["checks"] = [
+        hold("hover", hover, es_h, tr.action, 30, False, True),
+        hold("hover", hover, es_h, tr.action, 300, True, True),
+        hold("hover", hover, es_h, tr.action, 30, False, False),
+        hold("hover", hover, es_h, tr.action, 300, True, False),
+        hold("mixed4", mixed, es_m, tr60.action, 30, False, True),
+        hold("mixed4", mixed, es_m, tr60.action, 300, True, True)]
+
+    # the winged launches timed beside their bounds (counts restored inside)
+    report["numbers"] = {
+        "hover": step_numbers(hover, es_h, tr.action.to(dev).expand(N_ENVS, 4).contiguous(),
+                              0.0, mixed=False),
+        "mixed4": step_numbers(mixed, es_m, tr60.action.to(dev).expand(N_ENVS, 4).contiguous(),
+                               0.0, mixed=True)}
+    for name, nb in report["numbers"].items():
+        rb = nb["rollout_bound"]
+        print(f"[time] winged {name}: one-step kernel {nb['kernel_ms'] * 1e3:.2f} us/launch "
+              f"({nb['kernel_ms_source']}), bound {nb['bound_ms'] * 1e3:.3f} us "
+              f"({nb['bound_by']}, {nb['elementwise_ops_per_env_step']:.0f} elementwise "
+              f"ops/env); T-step launch {nb['rollout_ms_per_step'] * 1e3:.2f} us per step, "
+              f"bound {rb['bound_ms'] * 1e3:.3f} us ({rb['bound_by']}); plain "
+              f"{nb['plain_ms']:.3f} ms/step")
+
+    # the path: the graphed collector and one train step with hover4k's
+    # parameters on a fresh winged farm, the rollout demo's work, a trace
+    zero_counts()
+    trainer = PPOLearner(hover, train_cfg)
+    ts = trainer.init(torch.Generator().manual_seed(5))
+    ck = trainer.restore(os.path.join(here, "examples", "hover4k_policy.npz"))
+    ts = ts.replace(params=ck.params, opt_state=ck.opt_state, obs_stats=ck.obs_stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, traj = trainer.collect(ts, ts.generator)
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t0
+    for f in ("obs", "action", "log_prob", "value", "reward", "v_boot"):
+        v = getattr(traj, f)
+        if v.shape[:2] != (ROLLOUT_STEPS, N_ENVS) or not bool(torch.isfinite(v).all()):
+            fail(f"winged collector: {f} has shape {tuple(v.shape)} or non-finite values")
+    t0 = time.perf_counter()
+    ts, metrics = trainer.train_step(ts)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    metrics = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in metrics.values()) or not all(
+            bool(torch.isfinite(p).all()) for p in trainer.param_list(ts.params)):
+        fail(f"winged train step: non-finite metrics or parameters ({metrics})")
+    after_train = fs.launches
+    if after_train != 2 * ROLLOUT_STEPS + 1 or fs.calls["replay"] != 2:
+        fail(f"winged: the collector and the train step ran {after_train} kernel steps "
+             f"in {fs.calls}, expected {2 * ROLLOUT_STEPS + 1} in 2 replays")
+    print(f"[winged] graphed collect, {ROLLOUT_STEPS} steps at {N_ENVS} envs (capture "
+          f"included): {collect_s * 1e3:.1f} ms; one train step {train_s * 1e3:.1f} ms; "
+          f"reward_mean {metrics['reward_mean']:.5f}, done_frac {metrics['done_frac']:.5f}, "
+          f"approx_kl {metrics.get('approx_kl', float('nan')):.3g}")
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_rollout_demo", os.path.join(here, "examples", "torch_rollout_demo.py"))
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    res = demo.run(N_ENVS, CHUNK, fused=True, heli=airframe)
+    if not bool((torch.isfinite(res["rewards"]) | res["dones"]).all()):
+        fail("winged rollout demo: a non-finite reward outside an ending step")
+    if fs.launches - after_train != CHUNK or fs.calls["rollout"] != 1:
+        fail(f"winged rollout demo: {fs.launches - after_train} kernel steps in {fs.calls}")
+    demo_report = {k: v for k, v in res.items() if k not in ("state", "rewards", "dones")}
+    print(f"[winged] rollout demo, one T-step launch: {res['env_steps']} env-steps in "
+          f"{res['seconds']:.3f} s, {res['steps_per_s']:.1f} env-steps/s, mean reward "
+          f"{res['mean_reward']:+.5f}, terminations {res['terminations']}, altitude "
+          f"{res['alt_min']:.0f}..{res['alt_max']:.0f} ft")
+
+    tracer = PPOLearner(hover, dataclasses.replace(train_cfg, rollout_steps=TRACE_STEPS))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    ts3, _ = tracer.collect(ts, gen)                  # the capture, outside the trace
+    trace_dir = os.path.join(here, "build", "chip_smoke", "trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    before = fs.launches
+    with trace(trace_dir) as prof:
+        tracer.collect(ts3, gen)
+    traced = sum(ev.count for ev in prof.key_averages()
+                 if "fused_step_kernel<true>" in ev.key)
+    names = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, names[0])) as f:
+        in_file = "fused_step_kernel" in f.read()
+    print(f"[winged] trace of {TRACE_STEPS} collector steps (a graph replay): "
+          f"{names[0]}, names the step kernel {in_file}; executions of "
+          f"fused_step_kernel<true> {traced}, step-kernel steps {fs.launches - before}")
+    if len(names) != 1 or not in_file or traced != TRACE_STEPS \
+            or fs.launches - before != TRACE_STEPS:
+        fail(f"winged trace: {names}, winged kernel in the file {in_file}, "
+             f"{traced} executions")
+    launches, calls = fs.launches, dict(fs.calls)
+    report.update(collect_s=collect_s, train_step_s=train_s, metrics=metrics,
+                  demo=demo_report, traced_executions=traced, launches=launches,
+                  calls=calls, phase_s=time.perf_counter() - t_phase)
+    print(f"[winged] phase 10: {report['phase_s']:.1f} s, {launches} step-kernel steps "
+          f"on its path ({calls})")
     return report, launches
 
 

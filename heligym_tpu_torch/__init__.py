@@ -13,14 +13,19 @@ command line, the evaluator, the scripted expert, distillation), `parallel`
 `models` (airframe parameters), `utils`, `convert` (to and from the JAX
 package's arrays and checkpoints).
 
-Where gymnasium is installed, importing the package registers the gymnasium
-ids `heligym_tpu_torch/<Name>-v0` for the names in `ENV_IDS`
-(`envs/gym_api.py`), beside the JAX package's unprefixed ids. Where it is
-not, nothing is registered and every other module works: only
+The package exports `HeliEnv`, `VectorHeliEnv` and `load_params`, as the
+JAX package does. Where gymnasium is installed, importing the package also
+exports the gymnasium classes named in `ENV_IDS` (`envs/gym_api.py`) and
+registers their ids `heligym_tpu_torch/<Name>-v0`, beside the JAX package's
+unprefixed ids. Where it is not, nothing is registered and every other
+module works: only
 `envs/gym_api.py` imports gymnasium, and `envs/gym_core.py` holds the
 facades' work without it.
 """
 import importlib.util
+
+from .envs import HeliEnv, VectorHeliEnv
+from .models import load_params
 
 __version__ = "0.1.0"
 
@@ -37,3 +42,6 @@ if importlib.util.find_spec("gymnasium") is not None:
                  entry_point=f"heligym_tpu_torch.envs.gym_api:{_name}",
                  max_episode_steps=5000, reward_threshold=0.95,
                  nondeterministic=False)
+
+    from .envs.gym_api import (Heli, HeliForwardFlight, HeliHover, HeliLanding,
+                               HeliObliqueFlight, HeliSlalom, HeliTurningFlight)

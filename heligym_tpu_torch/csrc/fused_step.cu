@@ -6,9 +6,10 @@
 //
 // What it computes, per env: Dryden wind RK4 with the reference's aliased k4,
 // helicopter RK4 (4x heli_dynamics: rotor, tail rotor, fuselage, empennage,
-// gear, atmosphere, kinematics), pi_bound on 7 angles, the task reward and
-// in-tolerance flag (hover, forward, turning, slalom, landing, oblique; for a
-// MixedTask each env evaluates the one sub-task its task id names), the
+// the wing where the airframe has one, gear, atmosphere, kinematics),
+// pi_bound on 7 angles, the task reward and in-tolerance flag (hover,
+// forward, turning, slalom, landing, oblique; for a MixedTask each env
+// evaluates the one sub-task its task id names), the
 // step/success counters, done/truncated/failed at the post-step terrain
 // height, the collect rows, and the auto-reset select. The terrain gather
 // (committed position for the physics, post-step position for the crash
@@ -36,7 +37,11 @@
 //     argument: 32, 64 or 128 threads), so that a few thousand envs spread
 //     over many SMs (4096 envs in 64-thread blocks: 64 SMs);
 //   * envs are contiguous within a row of every block, so neighbouring
-//     threads load and store neighbouring addresses.
+//     threads load and store neighbouring addresses;
+//   * the wing term (ops/aero.py wing, for an airframe with WN.ZUW != 0) is
+//     a compile-time branch: each kernel has a wingless and a winged
+//     instantiation (template argument kWing), and the launch picks one, so
+//     a wingless airframe runs the code it ran before the wing was added.
 //
 // Numerics: compiled with -fmad=false and without --use_fast_math. FMA
 // contraction changes rounding and drifts the chaotic dynamics away from the
@@ -104,6 +109,7 @@ enum Const {
   K_NORM_T, K_NORM_T2, K_INV_NORM_X, K_INV_NORM_V, K_INV_NORM_A, K_THIRD,
   K_TIME_UP_STEPS, K_SUCC_REQ, K_VTIP005, K_ANG60, K_NS_HALF, K_EW_HALF,
   K_INV_XSCALE, K_INV_YSCALE, K_HALF_H, K_HALF_W, K_HM1,
+  K_WN_ZUU, K_WN_ZUW, K_WN_ZMAX, K_WN_INV_PI,
   K_COUNT
 };
 
@@ -127,7 +133,7 @@ constexpr int kObs0 = 23;
 constexpr int kCollectRows = 39;
 constexpr int kMaxThreads = 128;
 
-// The parameter block of both kernels, passed by value (708 + 256 bytes of
+// The parameter block of both kernels, passed by value (724 + 256 bytes of
 // tables, well inside the 4 KB of kernel parameters).
 struct Params {
   float c[K_COUNT];                        // the constant table
@@ -210,7 +216,15 @@ __device__ __forceinline__ void cross(const float a[3], const float b[3],
   out[2] = a[0] * b[1] - a[1] * b[0];
 }
 
+// `a + b` in the winged instantiation; `a` in the wingless one, whose sums
+// leave out the reference's zero wing terms.
+template <bool kWing>
+__device__ __forceinline__ float plus_wing(float a, float b) {
+  return kWing ? a + b : a;
+}
+
 // ops/eom.py::heli_dynamics. `obs` is the 17-dim observation.
+template <bool kWing>
 __device__ __forceinline__ void heli_dynamics(const float* C, const Heli& s,
                                               const float act[4],
                                               const float wind[3], float h_ground,
@@ -342,6 +356,24 @@ __device__ __forceinline__ void heli_dynamics(const float* C, const Heli& s,
   const float vt_l = vt_y * C[K_VT_H];
   const float vt_n = -vt_y * C[K_VT_D];
 
+  // ---- wing (ops/aero.py wing; zero moment): the port's plain version
+  // operation for operation, its division by pi a multiply by the float32
+  // reciprocal (utils/math.py cdiv)
+  float wn_x = 0.0f, wn_z = 0.0f, power_wn = 0.0f;
+  if (kWing) {
+    const float wa_wn = wa - s.vi_mr;
+    const float vta_wn = sqrtf(ua * ua + wa_wn * wa_wn);
+    const float wn_stall = 0.5f * rho * C[K_WN_ZMAX] * fabsf(vta_wn) * wa_wn;
+    const float wn_lin = 0.5f * rho * (C[K_WN_ZUU] * (ua * ua) +
+                                       C[K_WN_ZUW] * ua * wa_wn);
+    wn_z = (fabsf(wa_wn) > C[K_P3] * fabsf(ua)) ? wn_stall : wn_lin;
+    // induced drag; vta == 0 guarded as the JAX package guards it
+    const float vta2_safe = (vta_wn == 0.0f) ? C[K_EPS] : vta_wn * vta_wn;
+    const float lift = C[K_WN_ZUU] * ua * ua + C[K_WN_ZUW] * ua * wa_wn;
+    wn_x = -0.5f * rho * C[K_WN_INV_PI] / vta2_safe * (lift * lift);
+    power_wn = fabsf(wn_x * ua);
+  }
+
   // ---- landing gear (ops/gear.py; moment against the running force total)
   const float touch_alt = h_ground + C[K_WL_CG12];
   float f_lg[3] = {0.0f, 0.0f, 0.0f}, m_lg[3] = {0.0f, 0.0f, 0.0f};
@@ -365,21 +397,24 @@ __device__ __forceinline__ void heli_dynamics(const float* C, const Heli& s,
     for (int i = 0; i < 3; ++i) m_lg[i] = m_lg[i] + (contact ? m_leg[i] : 0.0f);
   }
 
-  // ---- sums in the reference's order (eom.py; the wing term is absent)
+  // ---- sums in the reference's order (eom.py): mr, tr, fus, ht, vt, wn,
+  // grav, lg; the wing's zero components are added as the plain version
+  // adds them
   const float power_extra_mr = power_climb + power_fus;
   const float mr_n_tot = mr_n + power_extra_mr * C[K_MR_INV_OMEGA];
-  const float power_total = power_mr + power_tr + power_extra_mr + C[K_HP_LOSS_FT];
+  const float power_total =
+      plus_wing<kWing>(power_mr + power_tr + power_extra_mr, power_wn) + C[K_HP_LOSS_FT];
   const float wt_vec[3] = {0.0f, 0.0f, C[K_WT]};
   float f_grav[3];
   matvec(e2b, wt_vec, f_grav);
   const float force[3] = {
-      mr_x + 0.0f + fus_x + 0.0f + 0.0f + f_grav[0] + f_lg[0],
-      mr_y + tr_y + fus_y + 0.0f + vt_y + f_grav[1] + f_lg[1],
-      mr_z + 0.0f + fus_z + ht_z + 0.0f + f_grav[2] + f_lg[2]};
+      plus_wing<kWing>(mr_x + 0.0f + fus_x + 0.0f + 0.0f, wn_x) + f_grav[0] + f_lg[0],
+      plus_wing<kWing>(mr_y + tr_y + fus_y + 0.0f + vt_y, 0.0f) + f_grav[1] + f_lg[1],
+      plus_wing<kWing>(mr_z + 0.0f + fus_z + ht_z + 0.0f, wn_z) + f_grav[2] + f_lg[2]};
   const float moment[3] = {
-      mr_l + tr_l + fus_l + 0.0f + vt_l + m_lg[0],
-      mr_m + 0.0f + fus_m + ht_m + 0.0f + m_lg[1],
-      mr_n_tot + tr_n + 0.0f + 0.0f + vt_n + m_lg[2]};
+      plus_wing<kWing>(mr_l + tr_l + fus_l + 0.0f + vt_l, 0.0f) + m_lg[0],
+      plus_wing<kWing>(mr_m + 0.0f + fus_m + ht_m + 0.0f, 0.0f) + m_lg[1],
+      plus_wing<kWing>(mr_n_tot + tr_n + 0.0f + 0.0f + vt_n, 0.0f) + m_lg[2]};
   float wxv[3], i_pqr[3], wxiw[3], mom[3], pqr_dot[3];
   cross(pqr, uvw, wxv);
   d.u = force[0] * C[K_INV_M] - wxv[0];
@@ -632,10 +667,12 @@ __device__ __forceinline__ void task_reward(const float* C, const float* row,
   }
 }
 
-// One env transition. `st` holds the env's 61 state rows (rows 0-22 and the
-// four obs rows the wind reads are read; all 61 are written), `steps` and
-// `succ` its counters; `col` is this env's column of this step's collect
-// block, or null. Both kernels run exactly this function.
+// One env transition (kWing: with the wing term). `st` holds the env's 61
+// state rows (rows 0-22 and the four obs rows the wind reads are read; all 61
+// are written), `steps` and `succ` its counters; `col` is this env's column
+// of this step's collect block, or null. Both kernels run exactly this
+// function.
+template <bool kWing>
 __device__ __forceinline__ void env_step(const Args& A, int i, int task,
                                          const float a[4], const float e[3],
                                          float st[kStateRows], float& steps,
@@ -682,7 +719,7 @@ __device__ __forceinline__ void env_step(const Args& A, int i, int task,
   for (int stage = 0; stage < 4; ++stage) {
     const Heli in = stage == 0 ? hs
                                : heli_add(hs, k4, stage == 3 ? C[K_DT] : C[K_HALF_DT]);
-    heli_dynamics(C, in, a, wind_ned, h_ground, k4, obs);
+    heli_dynamics<kWing>(C, in, a, wind_ned, h_ground, k4, obs);
 #define ACC(f) \
     sum.f = stage == 0 ? k4.f : (stage == 3 ? sum.f + k4.f : sum.f + k4.f * 2.0f);
     HELI_FIELDS(ACC)
@@ -758,6 +795,7 @@ __device__ __forceinline__ void env_step(const Args& A, int i, int task,
 
 // One thread per env: load its carry, run `n_steps` (>= 1) transitions with
 // the state in registers, store the carry.
+template <bool kWing>
 __device__ __forceinline__ void run(const Args& A, int n_steps) {
   const long long env = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (env >= A.n) return;
@@ -790,7 +828,7 @@ __device__ __forceinline__ void run(const Args& A, int n_steps) {
     const float e[3] = {eta[0], eta[B], eta[2 * B]};
     float* col = A.collect != nullptr
                      ? A.collect + (long long)t * kCollectRows * B + i : nullptr;
-    env_step(A, i, task, a, e, st, steps, succ, col);
+    env_step<kWing>(A, i, task, a, e, st, steps, succ, col);
   } while (++t < n_steps);
 
   for (int j = 0; j < kStateRows; ++j) A.carry_out[j * B + i] = st[j];
@@ -798,18 +836,20 @@ __device__ __forceinline__ void run(const Args& A, int n_steps) {
   A.carry_out[kSucc * B + i] = succ;
 }
 
+template <bool kWing>
 __global__ void __launch_bounds__(kMaxThreads)
 fused_step_kernel(const __grid_constant__ Args A) {
-  run(A, 1);
+  run<kWing>(A, 1);
 }
 
+template <bool kWing>
 __global__ void __launch_bounds__(kMaxThreads)
 fused_rollout_kernel(const __grid_constant__ Args A) {
-  run(A, A.steps);
+  run<kWing>(A, A.steps);
 }
 
 int launch(Args& a, const float* consts, const float* tasks, int block,
-           bool one_step, void* stream) {
+           bool one_step, bool wing, void* stream) {
   if (a.n < 1 || a.steps < 1 || a.n_tasks < 1 || a.n_tasks > kMaxTasks ||
       (block != 32 && block != 64 && block != 128))
     return (int)cudaErrorInvalidValue;
@@ -818,8 +858,10 @@ int launch(Args& a, const float* consts, const float* tasks, int block,
   memcpy(a.p.tasks, tasks, sizeof(float) * kTaskStride * a.n_tasks);
   const unsigned grid = (unsigned)((a.n + block - 1) / block);
   cudaStream_t s = (cudaStream_t)stream;
-  if (one_step) fused_step_kernel<<<grid, block, 0, s>>>(a);
-  else fused_rollout_kernel<<<grid, block, 0, s>>>(a);
+  if (one_step && wing) fused_step_kernel<true><<<grid, block, 0, s>>>(a);
+  else if (one_step) fused_step_kernel<false><<<grid, block, 0, s>>>(a);
+  else if (wing) fused_rollout_kernel<true><<<grid, block, 0, s>>>(a);
+  else fused_rollout_kernel<false><<<grid, block, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -828,8 +870,10 @@ int launch(Args& a, const float* consts, const float* tasks, int block,
 // C entry points (bound with ctypes). `consts` (K_COUNT floats) and `tasks`
 // (n_tasks x kTaskStride floats) are HOST pointers: their values travel in
 // the launch's parameter block. `carry_out` may alias `carry_in`: each env's
-// column is read before it is written. `collect` may be null. `block` is
-// the block size: 32, 64 or 128 threads. Each returns the cudaError_t of its launch (cudaErrorInvalidValue for
+// column is read before it is written. `collect` may be null. `wing` (0 or
+// 1) picks the instantiation with the wing term: 1 for an airframe with
+// WN.ZUW != 0. `block` is the block size: 32, 64 or 128 threads. Each
+// returns the cudaError_t of its launch (cudaErrorInvalidValue for
 // arguments it does not take).
 
 // One transition: act (B, 4), eta (3, B), collect (39, B).
@@ -839,13 +883,14 @@ extern "C" int heligym_fused_step(const float* carry_in, float* carry_out,
                                   const float* consts, const float* tasks,
                                   float* collect, int num_envs, int auto_reset,
                                   int map_h, int map_w, int n_tasks,
-                                  int select_by_id, int block, void* stream) {
+                                  int select_by_id, int wing, int block,
+                                  void* stream) {
   Args a;
   a.carry_in = carry_in; a.carry_out = carry_out; a.init = init; a.act = act;
   a.act_stride = 0; a.eta = eta; a.texels = texels; a.collect = collect;
   a.n = num_envs; a.steps = 1; a.auto_reset = auto_reset; a.map_h = map_h;
   a.map_w = map_w; a.n_tasks = n_tasks; a.select_by_id = select_by_id;
-  return launch(a, consts, tasks, block, true, stream);
+  return launch(a, consts, tasks, block, true, wing != 0, stream);
 }
 
 // `steps` transitions in one launch: act (steps, B, 4) with act_stride 4 B,
@@ -858,14 +903,14 @@ extern "C" int heligym_fused_rollout(const float* carry_in, float* carry_out,
                                      const float* tasks, float* collect,
                                      int num_envs, int steps, int auto_reset,
                                      int map_h, int map_w, int n_tasks,
-                                     int select_by_id, int block,
+                                     int select_by_id, int wing, int block,
                                      void* stream) {
   Args a;
   a.carry_in = carry_in; a.carry_out = carry_out; a.init = init; a.act = act;
   a.act_stride = act_stride; a.eta = eta; a.texels = texels; a.collect = collect;
   a.n = num_envs; a.steps = steps; a.auto_reset = auto_reset; a.map_h = map_h;
   a.map_w = map_w; a.n_tasks = n_tasks; a.select_by_id = select_by_id;
-  return launch(a, consts, tasks, block, false, stream);
+  return launch(a, consts, tasks, block, false, wing != 0, stream);
 }
 
 extern "C" int heligym_fused_step_const_count() { return K_COUNT; }

@@ -211,16 +211,18 @@ def multi_seed_evaluate(env: HeliEnv, learner: PPOLearner, ts: TrainState, *,
 
 
 def build_env(task: str = "hover", tasks: str = None, target: str = None,
-              max_time: float = None, turb_level: int = None, device=None):
+              max_time: float = None, turb_level: int = None, device=None,
+              heli: str = "aw109"):
     """The evaluation env of the command line: (env, number of sub-tasks or
     0). `tasks` is a comma list for a MixedTask; `target` a 'k=v,...'
-    override applied to every (sub-)task that has the key."""
+    override applied to every (sub-)task that has the key; `heli` the
+    airframe's name in the model registry."""
     if tasks:
         names = [s.strip() for s in tasks.split(",") if s.strip()]
         task_obj = MixedTask(tasks=tuple(TASKS[n]() for n in names))
     else:
         names, task_obj = [], TASKS[task]()
-    env = HeliEnv.build("aw109", task=task_obj, device=device)
+    env = HeliEnv.build(heli, task=task_obj, device=device)
     if target:
         updates = _parse_target(target, env)
         if names:

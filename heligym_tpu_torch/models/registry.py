@@ -4,7 +4,8 @@ The model files are the JAX package's data files, read in place by path
 (`heligym_tpu/models/<name>.yaml`); no module of that package is imported.
 They use a small subset of YAML (nested mappings by indentation, numbers,
 quoted strings, comments), which `_parse_yaml` reads without PyYAML so the
-port needs no package beyond torch and numpy.
+port needs no package beyond torch and numpy. `register_model_path` adds a
+directory of the user's own airframes, searched first.
 """
 from __future__ import annotations
 
@@ -18,6 +19,16 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _MODEL_DIR = os.path.join(_REPO_ROOT, "heligym_tpu", "models")
 _SEARCH_PATHS: List[str] = [_MODEL_DIR]
+
+
+def register_model_path(path: str) -> None:
+    """Add a directory to search for `<name>.yaml` model files, ahead of the
+    others (a path already listed is not added twice). `load_params` caches
+    each name at its first load, as the JAX package's does: a name loaded
+    before its directory was registered keeps what was found then (give a
+    user airframe a name of its own)."""
+    if path not in _SEARCH_PATHS:
+        _SEARCH_PATHS.insert(0, path)
 
 
 def available_models() -> List[str]:

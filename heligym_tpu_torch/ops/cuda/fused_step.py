@@ -17,7 +17,9 @@ Two launch forms share one device step function:
 Both take CUDA tensors and launch (or raise), or CPU tensors and run
 `fused_step_plain`, the same function written with the port's torch modules.
 Nothing falls back from one to the other. The constant and task tables go to
-the kernel by value, in its parameter block.
+the kernel by value, in its parameter block. An airframe with a wing
+(`has_wing`) runs each form's winged instantiation, one without the
+wingless one.
 
 Row maps (envs contiguous within a row):
   carry (63, B): 0-17 heli (HELI_STATE_FIELDS order) | 18-22 wind |
@@ -125,6 +127,7 @@ CONST_NAMES = (
     "NORM_T", "NORM_T2", "INV_NORM_X", "INV_NORM_V", "INV_NORM_A", "THIRD",
     "TIME_UP_STEPS", "SUCC_REQ", "VTIP005", "ANG60", "NS_HALF", "EW_HALF",
     "INV_XSCALE", "INV_YSCALE", "HALF_H", "HALF_W", "HM1",
+    "WN_ZUU", "WN_ZUW", "WN_ZMAX", "WN_INV_PI",
 )
 
 
@@ -136,7 +139,7 @@ def const_values(env: HeliEnv) -> dict:
     the float32 reciprocal."""
     p, norm = env.params, env.normalizers
     H, E, MR, TR = p.HELI, p.ENV, p.MR, p.TR
-    FUS, HT, VT, LG = p.FUS, p.HT, p.VT, p.LG
+    FUS, HT, VT, WN, LG = p.FUS, p.HT, p.VT, p.WN, p.LG
     wp = env.wind_params
     r_factor, col_keys, row_a, row_b = dryden.tep_static_row(wp.turbulence_level)
     w20 = wp.turbulence_level / 7.0 * 88.61
@@ -204,6 +207,8 @@ def const_values(env: HeliEnv) -> dict:
         "INV_XSCALE": recip32(env.terrain.ns_max / h),
         "INV_YSCALE": recip32(env.terrain.ew_max / w),
         "HALF_H": float(h // 2), "HALF_W": float(w // 2), "HM1": float(h - 1),
+        "WN_ZUU": WN.ZUU, "WN_ZUW": WN.ZUW, "WN_ZMAX": WN.ZMAX,
+        "WN_INV_PI": recip32(math.pi),
     }
     return v
 
@@ -249,10 +254,11 @@ def _tables(env: HeliEnv) -> Tuple[np.ndarray, np.ndarray]:
     return consts, tasks
 
 
-def _check_supported(env: HeliEnv) -> None:
-    """Every task runs in the kernel; only a wing term does not."""
-    if env.params.WN.ZUW != 0.0:
-        raise NotImplementedError("the fused CUDA step has no wing term")
+def has_wing(env: HeliEnv) -> bool:
+    """Whether `env`'s airframe has the wing term, gated as the JAX package
+    gates it (`ops/aero.py::wing`): `WN.ZUW != 0`. It picks the kernels'
+    winged instantiation."""
+    return env.params.WN.ZUW != 0.0
 
 
 # -- packing ---------------------------------------------------------------
@@ -424,7 +430,6 @@ def _checked(env: HeliEnv, carry, init, act, eta, carry_out, collect_out,
     each a contiguous float32 tensor of its shape on the carry's device
     (`steps` leads the shapes of a T-step launch's act, eta and collect
     blocks; a (B, 4) act is held for every step)."""
-    _check_supported(env)
     n, dev = carry.shape[1], carry.device
     lead = () if steps is None else (steps,)
     texels = env.terrain.packed
@@ -457,7 +462,7 @@ def launch_args(env: HeliEnv, carry, init, act, eta, auto_reset, carry_out,
             consts.ctypes.data, tasks.ctypes.data,
             None if collect_out is None else collect_out.data_ptr(),
             carry.shape[1], int(auto_reset), map_h, map_w, tasks.shape[0],
-            int(isinstance(env.task, MixedTask)), BLOCK,
+            int(isinstance(env.task, MixedTask)), int(has_wing(env)), BLOCK,
             torch.cuda.current_stream(carry.device).cuda_stream)
 
 
@@ -477,7 +482,7 @@ def rollout_args(env: HeliEnv, carry, init, actions, eta_seq, auto_reset,
             consts.ctypes.data, tasks.ctypes.data,
             None if collect_out is None else collect_out.data_ptr(),
             n, steps, int(auto_reset), map_h, map_w, tasks.shape[0],
-            int(isinstance(env.task, MixedTask)), BLOCK,
+            int(isinstance(env.task, MixedTask)), int(has_wing(env)), BLOCK,
             torch.cuda.current_stream(carry.device).cuda_stream)
 
 
@@ -505,7 +510,7 @@ def kernel_fn(flags: Optional[Tuple[str, ...]] = None):
     import ctypes
     fn = _lib(flags).heligym_fused_step
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 9 + [ci] * 7 + [vp]
+    fn.argtypes = [vp] * 9 + [ci] * 8 + [vp]
     fn.restype = ci
     return fn
 
@@ -516,7 +521,7 @@ def rollout_kernel_fn(flags: Optional[Tuple[str, ...]] = None):
     import ctypes
     fn = _lib(flags).heligym_fused_rollout
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 4 + [ctypes.c_longlong] + [vp] * 5 + [ci] * 8 + [vp]
+    fn.argtypes = [vp] * 4 + [ctypes.c_longlong] + [vp] * 5 + [ci] * 9 + [vp]
     fn.restype = ci
     return fn
 

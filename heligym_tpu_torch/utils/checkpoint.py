@@ -7,17 +7,36 @@ PyTreeDef. The committed policies (`examples/*_policy.npz`) are whole
 each leaf its place in the tree, and returns every part of the TrainState
 (`load_policy_npz`: the network parameters, the observation statistics and
 the counter); it fails loudly on a treedef it does not recognise.
-`save_npz` writes a tree built of dicts, tuples, `Node`s and numpy leaves in
-the same format, its treedef string as JAX renders it, so that the JAX
-package's `load_npz` reads the file back against a template of the same
-structure.
+`save_npz` writes a tree in the same format, its treedef string as JAX
+renders it, so that the JAX package's `load_npz` reads the file back against
+a template of the same structure. A tree is built of dicts, tuples, lists,
+None, `Node`s, the port's state dataclasses (`EnvState`, `HeliState`, ...:
+each the JAX struct of its name, its fields in order) and leaves (tensors,
+numpy arrays, numbers).
+
+`load_npz(path, template)` reads such a file, the JAX package's or the
+port's, against a template tree such as an `EnvState`: the stored treedef
+string, the leaf count and every leaf's shape must be the template's (each
+mismatch raises `ValueError`, worded as the JAX package's), then each leaf
+takes the template leaf's dtype and device. `save_pytree` and
+`restore_pytree` are the port's counterparts of the JAX package's orbax
+pair: the same flat dict in one `torch.save` file, read back with
+`torch.load(weights_only=True)` and checked against the template in the
+same way.
+
+The JAX `EnvState` holds per-env PRNG keys after its counters; the port's
+draws its noise from a `torch.Generator` and has none. A port `EnvState` is
+written with zero keys (B, 2) uint32 in their place, and the keys a file
+holds are checked for shape and dropped on reading.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
+import torch
 
 _TOKEN = re.compile(r"\s*(CustomNode\(|\*|'[^']*'|[\[\]\(\)\{\},:]|[A-Za-z_][\w\.]*)")
 
@@ -137,28 +156,76 @@ class Node:
         self.name, self.children, self.namedtuple = name, list(children), namedtuple
 
 
-def flatten(tree) -> Tuple[str, List[np.ndarray]]:
-    """(treedef string, leaves) of `tree` as `jax.tree_util.tree_flatten`
-    gives them: dict keys in sorted order, tuples in order, a `Node`'s
-    children in order, anything else a leaf."""
-    leaves: List[np.ndarray] = []
+class _Keys:
+    """The per-env PRNG keys of a JAX EnvState, which the port's lacks: a
+    (B, 2) uint32 leaf, zeros when written, dropped when read."""
 
+    def __init__(self, batch: Tuple[int, ...]):
+        self.value = np.zeros(tuple(batch) + (2,), np.uint32)
+
+
+def _children(node) -> List[Any]:
+    """A dataclass's children in the JAX struct's order: its fields, and
+    for an EnvState the keys after the counters."""
+    from ..envs.env import EnvState
+
+    names = [f.name for f in dataclasses.fields(node)]
+    kids = [getattr(node, n) for n in names]
+    if isinstance(node, EnvState):
+        kids.insert(names.index("init"), _Keys(tuple(node.steps.shape)))
+    return kids
+
+
+def _is_leaf(x) -> bool:
+    return isinstance(x, (torch.Tensor, np.ndarray, np.generic, int, float, bool))
+
+
+def _walk(tree, leaf: Callable[[Any], None]) -> str:
+    """The treedef string of `tree` as JAX renders it; `leaf(x)` is called
+    on every leaf in `tree_flatten` order (dict keys sorted, sequences, a
+    `Node`'s and a dataclass's children in order)."""
     def render(node) -> str:
+        if node is None:
+            return "None"
         if isinstance(node, dict):
             return "{" + ", ".join(f"'{k}': {render(node[k])}"
                                    for k in sorted(node)) + "}"
         if isinstance(node, tuple):
             return "(" + ", ".join(render(v) for v in node) + \
                 ("," if len(node) == 1 else "") + ")"
+        if isinstance(node, list):
+            return "[" + ", ".join(render(v) for v in node) + "]"
         if isinstance(node, Node):
             head = (f"namedtuple[{node.name}]" if node.namedtuple
                     else f"{node.name}[()]")
             return (f"CustomNode({head}, ["
                     + ", ".join(render(c) for c in node.children) + "])")
-        leaves.append(np.asarray(node))
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            return (f"CustomNode({type(node).__name__}[()], ["
+                    + ", ".join(render(c) for c in _children(node)) + "])")
+        if not (_is_leaf(node) or isinstance(node, _Keys)):
+            raise TypeError(f"a checkpoint tree holds tensors, arrays and numbers, "
+                            f"not {type(node).__name__}")
+        leaf(node)
         return "*"
 
-    return "PyTreeDef(" + render(tree) + ")", leaves
+    return "PyTreeDef(" + render(tree) + ")"
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, _Keys):
+        return x.value
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def flatten(tree) -> Tuple[str, List[np.ndarray]]:
+    """(treedef string, leaves as numpy arrays) of `tree` as
+    `jax.tree_util.tree_flatten` gives them."""
+    leaves: List[np.ndarray] = []
+    treedef = _walk(tree, lambda x: leaves.append(_host(x)))
+    return treedef, leaves
 
 
 def save_npz(path: str, tree, **extra) -> None:
@@ -167,6 +234,94 @@ def save_npz(path: str, tree, **extra) -> None:
     treedef, leaves = flatten(tree)
     np.savez(path, n=len(leaves), treedef=treedef, **extra,
              **{f"leaf_{i}": x for i, x in enumerate(leaves)})
+
+
+def _cast(stored: np.ndarray, like):
+    """A stored leaf as the template leaf `like`: its dtype, and for a
+    tensor its device."""
+    if isinstance(like, torch.Tensor):
+        return torch.from_numpy(np.ascontiguousarray(stored)).to(
+            device=like.device, dtype=like.dtype)
+    if hasattr(like, "dtype"):
+        return np.asarray(stored).astype(like.dtype)
+    return stored
+
+
+_DROPPED = object()
+
+
+def _rebuild(template, leaves):
+    """`template` with its leaves replaced, in flatten order, from the
+    iterator `leaves` (the stored keys of an EnvState consumed and
+    dropped)."""
+    if template is None:
+        return None
+    if isinstance(template, dict):
+        built = {k: _rebuild(template[k], leaves) for k in sorted(template)}
+        return {k: built[k] for k in template}
+    if isinstance(template, (tuple, list)):
+        return type(template)(_rebuild(v, leaves) for v in template)
+    if isinstance(template, Node):
+        return Node(template.name, [_rebuild(c, leaves) for c in template.children],
+                    template.namedtuple)
+    if dataclasses.is_dataclass(template) and not isinstance(template, type):
+        names = [f.name for f in dataclasses.fields(template)]
+        kids = [_rebuild(c, leaves) for c in _children(template)]
+        return dataclasses.replace(template, **dict(zip(
+            names, (k for k in kids if k is not _DROPPED))))
+    stored, like = next(leaves)
+    return _DROPPED if isinstance(like, _Keys) else _cast(stored, like)
+
+
+def _restore(path: str, stored_treedef: str, leaves: List[np.ndarray], template):
+    """`template` filled with the stored `leaves`, after checking the
+    treedef, the leaf count and every leaf's shape against it."""
+    t_leaves: List[Any] = []
+    treedef = _walk(template, t_leaves.append)
+    if stored_treedef != treedef:
+        raise ValueError(
+            f"checkpoint structure mismatch: {path} stores\n  {stored_treedef}\n"
+            f"but the template is\n  {treedef}")
+    if len(leaves) != len(t_leaves):
+        raise ValueError(f"checkpoint leaf count {len(leaves)} != template "
+                         f"{len(t_leaves)} ({path})")
+    for i, (l, t) in enumerate(zip(leaves, t_leaves)):
+        t_shape = tuple(t.shape) if isinstance(t, torch.Tensor) else np.shape(_host(t))
+        if tuple(np.shape(l)) != t_shape:
+            raise ValueError(f"checkpoint leaf {i} shape {np.shape(l)} != "
+                             f"template {t_shape} ({path})")
+    return _rebuild(template, iter(zip(leaves, t_leaves)))
+
+
+def load_npz(path: str, template):
+    """Inverse of `save_npz` (the port's or the JAX package's): the file's
+    leaves in the structure of `template`, each with its template leaf's
+    dtype and device. The stored treedef string, the leaf count and every
+    leaf's shape are checked against `template`: a checkpoint of another
+    configuration whose leaf count happens to be equal fails loudly instead
+    of misassigning leaves."""
+    with np.load(path, allow_pickle=False) as z:
+        leaves = [z[f"leaf_{i}"] for i in range(int(z["n"]))]
+        stored_treedef = str(z["treedef"])
+    return _restore(path, stored_treedef, leaves, template)
+
+
+def save_pytree(path: str, tree) -> None:
+    """Save `tree` to the file `path` with `torch.save`: the flat dict of
+    `save_npz` (`n`, `treedef`, `leaf_i` as CPU tensors)."""
+    treedef, leaves = flatten(tree)
+    torch.save({"n": len(leaves), "treedef": treedef,
+                **{f"leaf_{i}": torch.from_numpy(np.ascontiguousarray(x))
+                   for i, x in enumerate(leaves)}}, path)
+
+
+def restore_pytree(path: str, template):
+    """Restore a tree saved by `save_pytree` (`torch.load(weights_only=True)`);
+    `template` supplies the structure, shapes, dtypes and devices (e.g. a
+    freshly built EnvState), checked as `load_npz` checks them."""
+    z = torch.load(path, map_location="cpu", weights_only=True)
+    leaves = [z[f"leaf_{i}"].numpy() for i in range(int(z["n"]))]
+    return _restore(path, str(z["treedef"]), leaves, template)
 
 
 def load_train_state_npz(path: str) -> Dict[str, Any]:

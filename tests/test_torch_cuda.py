@@ -16,6 +16,7 @@ from heligym_tpu_torch.envs import (ForwardFlightTask, HeliEnv, HoverTask,
                                     LandingTask, MixedTask, ObliqueFlightTask,
                                     SlalomTask, TurningFlightTask, VectorHeliEnv)
 from heligym_tpu_torch.ops.cuda import fused_step as fs, gather
+from torch_airframes import NAME as WINGED, write_winged
 from torch_trim_cache import fresh_trim_cache  # noqa: F401
 
 TASK_NAMES = ("hover", "forward", "turning", "slalom", "landing",
@@ -765,3 +766,136 @@ def test_launches_on_a_card_that_is_not_current():
         for f in ("obs", "action", "reward", "terminated"):
             assert torch.equal(getattr(graphed, f), getattr(eager, f)), (k, f)
         assert torch.cuda.current_device() == 0
+
+
+@pytest.fixture(scope="module")
+def winged_airframe(tmp_path_factory):
+    """aw109_wing (tests/torch_airframes.py) registered for the module's run."""
+    from heligym_tpu_torch.models import register_model_path, registry
+    d = tmp_path_factory.mktemp("airframes")
+    write_winged(d)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(registry, "_SEARCH_PATHS", list(registry._SEARCH_PATHS))
+        register_model_path(str(d))
+        yield WINGED
+
+
+def _nan_bits_equal(a, b):
+    """Every value's bits equal, a NaN facing a NaN counting equal."""
+    a, b = a.contiguous(), b.contiguous()
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("auto_reset", [True, False])
+def test_winged_kernel_equals_plain(winged_airframe, auto_reset, monkeypatch):
+    """The kernels' winged instantiation against the plain version, bit for
+    bit (a NaN facing a NaN counts equal), at every block size the kernel
+    takes: one-step launches stepping their own carry and one T-step launch,
+    from the winged hover trim for 30 nominal steps and a 300-step dive."""
+    _need_card()
+    env = HeliEnv.build(winged_airframe, task=HoverTask())
+    assert fs.has_wing(env)
+    tr = env.trim_result()
+    n = 1000                    # not a multiple of a block: the ragged tail
+    es, _ = VectorHeliEnv(env, n).reset_from_trim(tr)
+    for steps, dive in ((30, False), (300, True)):
+        act, eta = _card_inputs(tr, steps, n, dive, seed=5)
+        carry, init = fs.pack(es)
+        cp, xp = carry.clone(), []
+        with torch.no_grad():
+            for t in range(steps):
+                cp, x = fs.fused_step_plain(env, cp, init, act[t], eta[t], auto_reset)
+                xp.append(x)
+        xp = torch.stack(xp)
+        assert bool(xp[:, fs.CDONE].any()) == dive
+        for block in (32, 64, 128):
+            monkeypatch.setattr(fs, "BLOCK", block)
+            ck, xk = carry.clone(), []
+            for t in range(steps):
+                ck, x = fs.fused_step(env, ck, init, act[t], eta[t], auto_reset)
+                xk.append(x)
+            cr, xr = fs.fused_rollout(env, carry, init, act, eta, auto_reset)
+            torch.cuda.synchronize()
+            assert _nan_bits_equal(torch.stack(xk), xp), (steps, block)
+            assert _nan_bits_equal(ck, cp), (steps, block)
+            assert _nan_bits_equal(xr, xp) and _nan_bits_equal(cr, cp), (steps, block)
+
+
+@pytest.mark.cuda
+def test_winged_graphed_collector_equals_eager(winged_airframe):
+    """PPOLearner.collect on the winged airframe: the graph replay (the
+    winged one-step launch captured) equals the eager loop bit for bit over
+    two rollouts, and counts its steps."""
+    _need_card()
+    from heligym_tpu_torch.learner import PPOConfig, PPOLearner
+    env = HeliEnv.build(winged_airframe, task=HoverTask())
+    n, steps = 512, 16
+    learner = PPOLearner(env, PPOConfig(num_envs=n, rollout_steps=steps))
+    ts0 = learner.init(torch.Generator().manual_seed(0))
+    outs = {}
+    for graphed in (True, False):
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        before = fs.launches
+        ts, trajs = ts0, []
+        for _ in range(2):
+            ts, tr = learner.collect(ts, gen, graphed=graphed)
+            trajs.append(tr)
+        torch.cuda.synchronize()
+        assert fs.launches == before + 2 * steps + int(graphed)
+        outs[graphed] = (fs.pack(ts.env_state)[0], trajs, gen.get_state())
+    assert _bits_equal(outs[True][0], outs[False][0])
+    assert torch.equal(outs[True][2], outs[False][2])
+    for tg, te in zip(outs[True][1], outs[False][1]):
+        for f in ("obs", "action", "log_prob", "value", "reward", "terminated",
+                  "truncated", "v_boot", "failed", "succ_step"):
+            assert _bits_equal(getattr(tg, f), getattr(te, f)), f
+
+
+@pytest.mark.cuda
+def test_pytree_checkpoints_of_a_card_farm(tmp_path):
+    """A farm on the card stepped 5 times, saved with `save_pytree` and with
+    `save_npz`, restored against itself as the template: every leaf on the
+    card and bit-equal, and one more step from each equal to the original's."""
+    _need_card()
+    from heligym_tpu_torch.utils import checkpoint as ckpt
+    env = HeliEnv.build("aw109", task=HoverTask())
+    venv = VectorHeliEnv(env, 256)
+    tr = env.trim_result()
+    es, _ = venv.reset_from_trim(tr)
+    act = tr.action.cuda().expand(256, 4).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for _ in range(5):
+        es, _ = venv.step(es, act, gen)
+    ckpt.save_pytree(str(tmp_path / "farm.pt"), es)
+    ckpt.save_npz(str(tmp_path / "farm.npz"), es)
+    eta = torch.randn(256, 3, device="cuda", generator=gen)
+    _, want = venv.step_with_eta(es, act, eta)
+    for restored in (ckpt.restore_pytree(str(tmp_path / "farm.pt"), es),
+                     ckpt.load_npz(str(tmp_path / "farm.npz"), es)):
+        assert restored.obs.device.type == "cuda"
+        assert _bits_equal(fs.pack(restored)[0], fs.pack(es)[0])
+        assert torch.equal(restored.steps, es.steps)
+        _, got = venv.step_with_eta(restored, act, eta)
+        assert _bits_equal(got.obs, want.obs) and _bits_equal(got.reward, want.reward)
+
+
+@pytest.mark.cuda
+def test_trace_lists_the_step_kernel(tmp_path):
+    """`trace` on the card: the Chrome trace it writes names the step
+    kernel, and its profile holds the kernel's device time."""
+    _need_card()
+    import glob
+    from heligym_tpu_torch.utils.profiling import trace
+    env = HeliEnv.build("aw109", task=HoverTask())
+    es, _ = VectorHeliEnv(env, 256).reset_from_trim(env.trim_result())
+    carry, init = fs.pack(es)
+    act = env.trim_result().action.cuda().expand(256, 4).contiguous()
+    with trace(str(tmp_path)) as prof:
+        for _ in range(3):
+            carry, _ = fs.fused_step(env, carry, init, act, torch.zeros(3, 256, device="cuda"))
+    (path,) = glob.glob(str(tmp_path / "*.json"))
+    with open(path) as f:
+        assert "fused_step_kernel" in f.read()
+    assert any("fused_step_kernel" in ev.key for ev in prof.key_averages())

@@ -197,10 +197,13 @@ def test_const_names_match_cuda_enum(env):
     assert set(fs.const_values(env)) == set(fs.CONST_NAMES)
 
 
-def test_kernel_covers_hover_only(env):
-    """What the kernel covers: every task and MixedTask; only a wing term is
-    refused. The task table's kinds follow `enum TaskKind` of the CUDA
-    source, and each row holds the floats the task's own reward uses."""
+def test_kernel_covers_every_task_and_the_wing(env):
+    """What the kernel covers: every task and MixedTask, and airframes with
+    and without a wing. The task table's kinds follow `enum TaskKind` of the
+    CUDA source, and each row holds the floats the task's own reward uses.
+    A winged airframe passes the launch checks and picks the kernels' winged
+    instantiation, gated as the JAX package gates the term (`WN.ZUW != 0`);
+    its constant table holds the wing's coefficients."""
     import dataclasses
     from heligym_tpu_torch.envs import (ForwardFlightTask, LandingTask, MixedTask,
                                         ObliqueFlightTask, SlalomTask,
@@ -213,9 +216,13 @@ def test_kernel_covers_hover_only(env):
     singles = (Task(), HoverTask(), ForwardFlightTask(), TurningFlightTask(),
                SlalomTask(), LandingTask(), LandingTask(touch_alt=3900.0),
                ObliqueFlightTask())
+    n = 4
+    carry, init = torch.zeros(fs.CROWS, n), torch.zeros(fs.IROWS, n)
+    launch_check = lambda e: fs._checked(e, carry, init, torch.zeros(n, 4),
+                                         torch.zeros(3, n), carry, None, None)
     for task in singles:
         e = env.replace(task=task)
-        fs._check_supported(e)
+        launch_check(e)
         table = fs.task_table(e)
         assert table.shape == (1, fs.TASK_STRIDE) and table.dtype == np.float32
         assert fs.TASK_KINDS[int(table[0, 0])] == task.KIND
@@ -226,10 +233,17 @@ def test_kernel_covers_hover_only(env):
     assert fs.task_table(mixed).shape == (len(singles) - 1, fs.TASK_STRIDE)
     with pytest.raises(ValueError):
         fs.task_table(env.replace(task=MixedTask()))
-    wn = dataclasses.replace(env.params.WN, ZUW=1.0)
-    with pytest.raises(NotImplementedError):
-        fs._check_supported(env.replace(
-            params=dataclasses.replace(env.params, WN=wn)))
+    assert not fs.has_wing(env)
+    wn = dataclasses.replace(env.params.WN, ZUU=2.0, ZUW=-170.0, ZMAX=-110.0)
+    winged = env.replace(params=dataclasses.replace(env.params, WN=wn))
+    consts, _ = launch_check(winged)
+    assert fs.has_wing(winged)
+    for name, v in (("WN_ZUU", 2.0), ("WN_ZUW", -170.0), ("WN_ZMAX", -110.0)):
+        assert consts[fs.CONST_NAMES.index(name)] == np.float32(v)
+    # ZUU alone makes no wing, in both packages
+    lift_only = dataclasses.replace(env.params.WN, ZUU=2.0)
+    assert not fs.has_wing(env.replace(
+        params=dataclasses.replace(env.params, WN=lift_only)))
 
 
 def test_param_block_layout(env):
