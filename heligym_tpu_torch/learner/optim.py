@@ -12,7 +12,9 @@ critic warm-up can scale the actor's updates to 0.
 
 The state holds one moment pair per parameter, in the order of the
 parameter list given to `adam_init` (the learner passes the flax leaf order
-of `ActorCritic.flax_leaves`), each in its parameter's own layout.
+of `ActorCritic.flax_leaves`), each in its parameter's own layout. A step
+writes the moments and the count in place, as it writes the parameters, so
+that a CUDA graph of the update that holds these tensors sees them advance.
 """
 from __future__ import annotations
 
@@ -32,6 +34,15 @@ class AdamState:
     count: torch.Tensor        # () int32
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
+
+    def __post_init__(self):
+        # a step writes the state in place: the state owns its memory, so
+        # that nothing it was built from (a numpy array, a checkpoint's
+        # leaves) changes with it
+        own = lambda t: t.detach().clone(memory_format=torch.contiguous_format)
+        object.__setattr__(self, "count", own(self.count))
+        object.__setattr__(self, "mu", [own(t) for t in self.mu])
+        object.__setattr__(self, "nu", [own(t) for t in self.nu])
 
 
 def adam_init(params: Sequence[torch.Tensor]) -> AdamState:
@@ -55,36 +66,37 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float):
 
 def adam_update(grads: Sequence[torch.Tensor], state: AdamState):
     """optax.scale_by_adam (b1 0.9, b2 0.999, eps 1e-8, eps_root 0): the
-    Adam direction of each parameter and the advanced state."""
+    Adam direction of each parameter; the state's moments and count advance
+    in place, and the state is returned with the direction."""
     grads = list(grads)
-    mu = torch._foreach_add(torch._foreach_mul(grads, 1.0 - B1),
-                            torch._foreach_mul(state.mu, B1))
-    nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - B2),
-                            torch._foreach_mul(state.nu, B2))
-    count = torch.where(state.count < _COUNT_MAX, state.count + 1, state.count)
-    steps = count.to(torch.float32)
-    mu_hat = torch._foreach_div(mu, 1.0 - torch.pow(B1, steps))
-    nu_hat = torch._foreach_div(nu, 1.0 - torch.pow(B2, steps))
+    torch._foreach_mul_(state.mu, B1)
+    torch._foreach_add_(state.mu, torch._foreach_mul(grads, 1.0 - B1))
+    torch._foreach_mul_(state.nu, B2)
+    torch._foreach_add_(state.nu, torch._foreach_mul(torch._foreach_mul(grads, grads),
+                                                     1.0 - B2))
+    state.count.copy_(torch.where(state.count < _COUNT_MAX, state.count + 1, state.count))
+    steps = state.count.to(torch.float32)
+    mu_hat = torch._foreach_div(state.mu, 1.0 - torch.pow(B1, steps))
+    nu_hat = torch._foreach_div(state.nu, 1.0 - torch.pow(B2, steps))
     denom = torch._foreach_add(torch._foreach_sqrt(nu_hat), EPS)
-    return torch._foreach_div(mu_hat, denom), AdamState(count=count, mu=mu, nu=nu)
+    return torch._foreach_div(mu_hat, denom), state
 
 
 @torch.no_grad()
 def apply_step(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
-               state: AdamState, lr, max_grad_norm: float,
-               scaled: Optional[Sequence[int]] = None, scale=None) -> AdamState:
-    """One optimizer step, written into `params` in place (so that every
-    holder of the parameters, such as the collector's graph, sees it):
-    clip, Adam, then `p + (-lr * u)`, the update of each parameter whose
-    index is in `scaled` first multiplied by `scale`. `lr` is a float or a
-    0-d tensor (the KL stop makes it 0 on the device). Returns the new
-    state."""
+               state: AdamState, lr: torch.Tensor, max_grad_norm: float,
+               scaled: Optional[Sequence[int]] = None,
+               scale: Optional[torch.Tensor] = None) -> AdamState:
+    """One optimizer step, written into `params` and `state` in place (so
+    that every holder of the parameters, such as the collector's graph,
+    sees it): clip, Adam, then `p + (-lr * u)`, the update of each
+    parameter whose index is in `scaled` first multiplied by `scale`. `lr`
+    and `scale` are 0-d float32 tensors on the parameters' device (the KL
+    stop makes `lr` 0 there), so that a step copies no host scalar to the
+    card. Returns the state."""
     direction, state = adam_update(clip_by_global_norm(grads, max_grad_norm), state)
-    updates = torch._foreach_mul(direction, -torch.as_tensor(lr, dtype=torch.float32,
-                                                             device=direction[0].device))
+    updates = torch._foreach_mul(direction, -lr)
     if scaled:
-        torch._foreach_mul_([updates[i] for i in scaled],
-                            torch.as_tensor(scale, dtype=torch.float32,
-                                            device=direction[0].device))
+        torch._foreach_mul_([updates[i] for i in scaled], scale)
     torch._foreach_add_(list(params), updates)
     return state

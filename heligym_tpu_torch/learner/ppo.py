@@ -7,8 +7,9 @@ input, the stochastic policy with its log-std ceiling, the rollout through
 collector's loop around `csrc/fused_step.cu`) with its reward sanitising and
 value bootstrap, GAE with the training-only shaping, the clipped PPO loss,
 the minibatch epochs with optax's clipped Adam written out by hand
-(`optim.py`), the train step, the flat-npz checkpoints the JAX package reads
-and writes, and the training loop.
+(`optim.py`; on one card each epoch one CUDA graph replay), the train step,
+the flat-npz checkpoints the JAX package reads and writes, and the training
+loop.
 
 Where the JAX learner passes a flax parameter tree, the port passes the
 `ActorCritic` module that holds the parameters, and an update writes into
@@ -41,6 +42,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..envs.env import EnvState, HeliEnv
 from ..envs.vector import VectorHeliEnv
@@ -48,6 +50,13 @@ from ..ops.state import HELI_STATE_FIELDS, WIND_STATE_FIELDS
 from ..parallel.mesh import all_reduce, assert_replicated, gather_rows, shard_rows
 from .networks import ActorCritic, gaussian_entropy, gaussian_log_prob, obs_scales
 from .optim import AdamState, adam_init, apply_step
+
+# The update's paths, counted as `fused_step.launches` counts the step
+# kernel's steps: captures of the epoch's CUDA graph, its replays, and
+# minibatch steps run eagerly (the CPU, a mesh, `graphed=False`).
+update_captures = 0
+update_replays = 0
+eager_minibatch_steps = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,6 +205,29 @@ def _f32(x) -> np.float32:
     return np.float32(x)
 
 
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """One update's scheduled scalars (`PPOLearner.schedules`) as 0-d
+    float32 tensors on the learner's device, so that the minibatch steps
+    read them there: no step waits for a host-to-device copy, and a new
+    value needs no new capture of the update's graph. `actor_scale` is None
+    without critic warm-up."""
+    lr: torch.Tensor
+    ent_coef: torch.Tensor
+    cap: torch.Tensor
+    actor_scale: Optional[torch.Tensor]
+
+    @classmethod
+    def on(cls, device, lr, ent_coef, cap, actor_scale=None) -> "Schedule":
+        """The scalars (numbers or 0-d tensors) on `device`; a number is
+        written there by a fill kernel, not copied from the host."""
+        def put(x):
+            if x is None or torch.is_tensor(x):
+                return x if x is None else x.to(device=device, dtype=torch.float32)
+            return torch.full((), float(x), dtype=torch.float32, device=device)
+        return cls(put(lr), put(ent_coef), put(cap), put(actor_scale))
+
+
 class PPOLearner:
     """PPO for a HeliEnv, on the env's device; with a `mesh`, this rank's
     part of a run sharded over the mesh's env dimension (module docstring).
@@ -228,6 +260,7 @@ class PPOLearner:
                          else torch.zeros(4, device=env.device))
         self._scales = torch.from_numpy(obs_scales(env.params)).to(env.device)
         self._fused_rollout = None
+        self._update_graph = None       # `_epoch_graph`'s graph and buffers
 
     # ------------------------------------------------------------- setup
     def make_network(self, generator: Optional[torch.Generator] = None) -> ActorCritic:
@@ -355,7 +388,7 @@ class PPOLearner:
         x = obs.reshape(-1, obs.shape[-1]) / self._scales
         x = torch.clamp(torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0),
                         -50.0, 50.0)
-        s = self._reduce(torch.cat([x.sum(0), x.new_tensor([float(x.shape[0])])]))
+        s = self._reduce(torch.cat([x.sum(0), x.new_full((1,), float(x.shape[0]))]))
         nb = s[-1]
         mb = s[:-1] / nb
         # the population variance, in two passes as jnp.var
@@ -572,13 +605,13 @@ class PPOLearner:
     def _update_epoch(self, params: ActorCritic, opt_state: AdamState,
                       flat: Transition, advantages, returns, stats, ent_coef, lr,
                       cap, actor_scale=None, generator=None, idx=None):
-        """One epoch of minibatch steps over the flattened rollout, the
-        parameters updated in place. `idx` (n,) is the epoch's shuffle of
-        the global T * B samples, in the flat order t * B + b (injected by
-        tests, to reproduce JAX's draw); by default a permutation ("perm")
-        or a circular shift ("roll") drawn from `generator`. `mb = n //
-        minibatches`, so a remainder is dropped. Returns the optimizer state
-        and each metric per minibatch.
+        """One epoch of minibatch steps over the flattened rollout, run
+        eagerly (`_epoch`), the parameters and Adam's state updated in
+        place. `idx` (n,) is the epoch's shuffle of the global T * B
+        samples, in the flat order t * B + b (injected by tests, to
+        reproduce JAX's draw); by default `_shuffle` draws it from
+        `generator`. The scalars are numbers or 0-d tensors. Returns the
+        optimizer state and each metric per minibatch.
 
         `flat`, `advantages` and `returns` are this rank's (T * B/R, flat
         order t * B/R + b; all of them without a mesh): each minibatch step
@@ -587,42 +620,136 @@ class PPOLearner:
         all-reduces per epoch) and sums the gradients and metrics over the
         ranks (one all-reduce per step), so that the KL stop and the clip
         see the global step."""
-        cfg = self.config
-        n = advantages.shape[0] * self.shards        # the global sample count
+        global eager_minibatch_steps
         dev = advantages.device
         if idx is None:
-            if cfg.shuffle == "perm":
-                idx = torch.randperm(n, generator=generator, device=dev)
-            else:           # roll: out[i] = x[(i - shift) mod n]
-                shift = torch.randint(0, n, (), generator=generator, device=dev)
-                idx = torch.remainder(torch.arange(n, device=dev) - shift, n)
-        mb = n // cfg.minibatches
+            idx = self._shuffle(advantages.shape[0] * self.shards, generator, dev)
+        sched = Schedule.on(dev, lr, ent_coef, cap, actor_scale)
+        out = self._epoch(params, opt_state, flat, advantages, returns, stats, sched, idx)
+        eager_minibatch_steps += self.config.minibatches
+        return out
+
+    def _shuffle(self, n: int, generator, device) -> torch.Tensor:
+        """The epoch's shuffle of `n` samples drawn from `generator`: a
+        permutation ("perm") or a circular shift ("roll": out[i] = x[(i -
+        shift) mod n])."""
+        if self.config.shuffle == "perm":
+            return torch.randperm(n, generator=generator, device=device)
+        shift = torch.randint(0, n, (), generator=generator, device=device)
+        return torch.remainder(torch.arange(n, device=device) - shift, n)
+
+    def _epoch(self, params: ActorCritic, opt_state: AdamState, flat: Transition,
+               advantages, returns, stats, sched: Schedule, idx):
+        """One epoch in the shuffle `idx`: the gather of this rank's samples
+        into shuffle order, each minibatch's advantage norms, and
+        `minibatches` x `_minibatch_step` (`mb = n // minibatches`, so a
+        remainder is dropped). The body of the eager epoch and of the
+        update's CUDA graph alike: without a mesh nothing here draws a
+        random number or waits for the host."""
+        cfg = self.config
+        mb = advantages.shape[0] * self.shards // cfg.minibatches
         order, counts = self._own_samples(idx, mb)
         mix = lambda x: x.index_select(0, order)
         flat_r = flat.map(mix)
         adv_r, ret_r = mix(advantages), mix(returns)
         adv_mean, adv_std = self._advantage_norms(adv_r, counts, mb)
         leaves = self.param_list(params)
-        scaled = None if actor_scale is None else self._actor_indices(params)
-        lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
+        scaled = None if sched.actor_scale is None else self._actor_indices(params)
         metrics, at = [], 0
         for i, count in enumerate(counts):
             sl = lambda x: x[at:at + count]
-            loss, aux = self._loss(params, flat_r.map(sl), sl(adv_r), sl(ret_r), stats,
-                                   ent_coef, cap, (adv_mean[i], adv_std[i], mb))
-            loss, aux, grads = self._sum_over_ranks(
-                loss, aux, torch.autograd.grad(loss, leaves))
+            opt_state, m = self._minibatch_step(params, leaves, opt_state, flat_r.map(sl),
+                                                sl(adv_r), sl(ret_r), stats, sched, scaled,
+                                                (adv_mean[i], adv_std[i], mb))
+            metrics.append(m)
             at += count
-            step_lr = lr
-            if cfg.target_kl > 0:
-                # KL early stop: once this epoch has drifted past target_kl,
-                # the remaining minibatch steps move no parameter (Adam's
-                # moments and count still advance)
-                step_lr = torch.where(aux["approx_kl"] < cfg.target_kl, lr, 0.0)
-            opt_state = apply_step(leaves, grads, opt_state, step_lr,
-                                   cfg.max_grad_norm, scaled, actor_scale)
-            metrics.append({"loss": loss.detach(), **aux})
         return opt_state, {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+
+    def _minibatch_step(self, params: ActorCritic, leaves, opt_state: AdamState,
+                        batch: Transition, advantages, returns, stats, sched: Schedule,
+                        scaled, norm):
+        """One minibatch step: the loss, its gradients (summed over the
+        ranks with a mesh), and one optimizer step written into the
+        parameters and Adam's state in place. Returns the state and the
+        step's metrics."""
+        cfg = self.config
+        loss, aux = self._loss(params, batch, advantages, returns, stats, sched.ent_coef,
+                               sched.cap, norm)
+        loss, aux, grads = self._sum_over_ranks(loss, aux, torch.autograd.grad(loss, leaves))
+        lr = sched.lr
+        if cfg.target_kl > 0:
+            # KL early stop: once this epoch has drifted past target_kl, the
+            # remaining minibatch steps move no parameter (Adam's moments and
+            # count still advance)
+            lr = torch.where(aux["approx_kl"] < cfg.target_kl, lr, 0.0)
+        opt_state = apply_step(leaves, grads, opt_state, lr, cfg.max_grad_norm, scaled,
+                               sched.actor_scale)
+        return opt_state, {"loss": loss.detach(), **aux}
+
+    def _epoch_graph(self, params: ActorCritic, opt_state: AdamState, inputs):
+        """One `_epoch` as a CUDA graph, for `inputs` = (flat rollout,
+        advantages, returns, statistics, `Schedule`), which are copied into
+        the graph's buffers here. Returns `replay(idx)`: the epoch's shuffle
+        copied in, one replay, the epoch's metrics.
+
+        The graph is captured on first use, and again when its key changes:
+        the shapes, dtypes and devices of the parameters, Adam's state and
+        the inputs (the sample count, the statistics, whether the actor's
+        updates are scaled), the config (`minibatches`, `target_kl > 0`,
+        `vf_clip_eps > 0` and the constants), and the parameter and state
+        tensors themselves, which the graph reads and writes in place (a
+        `restore` into new tensors captures again). Before the capture one
+        eager epoch runs on a side stream, so that cuBLAS, autograd and the
+        allocator settle; it writes the parameters and Adam's state, which
+        are saved before it and put back after. Nothing in the graph draws
+        from a generator."""
+        from ..ops.cuda.fused_step import _pairs, _signature
+
+        held = self.param_list(params) + opt_state.mu + opt_state.nu + [opt_state.count]
+        key = (_signature((params, opt_state, inputs)), self.config)
+        g = self._update_graph
+        if g is None or g["key"] != key or any(a is not b for a, b in zip(g["held"], held)):
+            g = self._update_graph = None      # free the old graph's pool first
+            g = self._capture_epoch(params, opt_state, inputs, held)
+            g["key"] = key
+            self._update_graph = g
+        dst, src = zip(*_pairs(g["inputs"], inputs))
+        torch._foreach_copy_(list(dst), list(src))
+
+        def replay(idx):
+            global update_replays
+            g["idx"].copy_(torch.as_tensor(idx, device=g["idx"].device))
+            with record_function("update_epoch_replay"):
+                g["graph"].replay()
+            update_replays += 1
+            # the caller owns what it gets: the next replay rewrites them
+            return {k: v.clone() for k, v in g["metrics"].items()}
+        return replay
+
+    def _capture_epoch(self, params: ActorCritic, opt_state: AdamState, inputs, held):
+        """`_epoch_graph`'s capture: static copies of the inputs and a
+        shuffle buffer, the warm-up epoch on a side stream with `held` (the
+        parameters and Adam's state) saved and put back, then the capture."""
+        global update_captures
+        from ..ops.cuda.fused_step import _static_copy, capturing
+
+        dev = inputs[1].device
+        g = {"held": held, "inputs": _static_copy(inputs),
+             "idx": torch.arange(inputs[1].shape[0], device=dev)}
+        saved = [t.detach().clone() for t in held]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._epoch(params, opt_state, *g["inputs"], g["idx"])
+        torch.cuda.current_stream(dev).wait_stream(side)
+        with torch.no_grad():
+            torch._foreach_copy_(held, saved)
+        graph = torch.cuda.CUDAGraph()
+        with capturing(graph):
+            _, g["metrics"] = self._epoch(params, opt_state, *g["inputs"], g["idx"])
+        g["graph"] = graph
+        update_captures += 1
+        return g
 
     def _own_samples(self, idx, mb: int) -> Tuple[torch.Tensor, List[int]]:
         """The local flat indices of the samples this rank holds among the
@@ -686,38 +813,64 @@ class PPOLearner:
         return (_f32(cfg.lr) * frac, _f32(cfg.ent_coef) * frac,
                 self.log_std_cap(update_count), actor_scale)
 
-    def update(self, ts: TrainState, traj: Transition, idx: Optional[Sequence] = None
+    def update(self, ts: TrainState, traj: Transition, idx: Optional[Sequence] = None,
+               graphed: Optional[bool] = None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """The update half of a train step, from the rollout `traj` that
-        `collect` gave: GAE, `epochs` x `_update_epoch` (the parameters and
-        Adam's state advance in place), the metrics, the statistics merge
-        (unless frozen). `idx`: one injected shuffle per epoch. Returns the
-        new state and the metrics as 0-d tensors, without a host sync."""
+        `collect` gave: GAE, `epochs` epochs of minibatch steps (the
+        parameters and Adam's state advance in place), the metrics, the
+        statistics merge (unless frozen). `idx`: one injected shuffle per
+        epoch. On a card without a mesh one epoch is one CUDA graph
+        (`_epoch_graph`), replayed `epochs` times after each epoch's shuffle
+        is drawn; `graphed=False` runs the epochs eagerly (`_update_epoch`),
+        as the CPU and a mesh do. GAE, the shuffles, the metrics and the
+        merge run eagerly either way. Returns the new state and the metrics
+        as 0-d tensors, without a host sync."""
         cfg = self.config
-        stats = ts.obs_stats if cfg.obs_norm else None
-        lr_t, ent_t, cap, actor_scale = self.schedules(ts.update_count)
         dev = traj.reward.device
-        cap = torch.tensor(cap, dtype=torch.float32, device=dev)
+        graphed = self._graphed_update(dev, graphed)
+        stats = ts.obs_stats if cfg.obs_norm else None
+        sched = Schedule.on(dev, *self.schedules(ts.update_count))
         with torch.no_grad():
             advantages, returns = self._gae(traj)
             # (T, B, ...) -> (T*B, ...)
             flat = traj.map(lambda x: x.reshape((x.shape[0] * x.shape[1],) + x.shape[2:]))
+        inputs = (flat, advantages.reshape(-1), returns.reshape(-1), stats, sched)
+        n = inputs[1].shape[0] * self.shards
         opt_state, per_mb = ts.opt_state, []
-        with _fp32_matmuls():
+        # the capture and the replays on the rollout's card, whichever is current
+        with _fp32_matmuls(), (torch.cuda.device(dev) if graphed
+                               else contextlib.nullcontext()):
+            replay = self._epoch_graph(ts.params, opt_state, inputs) if graphed else None
             for e in range(cfg.epochs):
-                opt_state, m = self._update_epoch(
-                    ts.params, opt_state, flat, advantages.reshape(-1),
-                    returns.reshape(-1), stats, float(ent_t), lr_t, cap, actor_scale,
-                    ts.generator, None if idx is None else idx[e])
+                order = None if idx is None else idx[e]
+                if replay is None:
+                    opt_state, m = self._update_epoch(
+                        ts.params, opt_state, *inputs[:4], sched.ent_coef, sched.lr,
+                        sched.cap, sched.actor_scale, ts.generator, order)
+                else:
+                    m = replay(self._shuffle(n, ts.generator, dev) if order is None
+                               else order)
                 per_mb.append(m)
         with torch.no_grad():
             metrics = {k: torch.stack([m[k] for m in per_mb]).mean() for k in per_mb[0]}
             metrics.update(self._rollout_metrics(traj))
-            metrics["lr"] = torch.tensor(lr_t, device=dev)
+            metrics["lr"] = sched.lr
             new_stats = (self._merge_stats(ts.obs_stats, traj.obs)
                          if cfg.obs_norm and not cfg.freeze_obs_stats else ts.obs_stats)
         return ts.replace(opt_state=opt_state, update_count=ts.update_count + 1,
                           obs_stats=new_stats), metrics
+
+    def _graphed_update(self, device: torch.device, graphed: Optional[bool]) -> bool:
+        """Whether `update` replays the epoch's graph: by default on a card
+        without a mesh (the mesh's all-reduces stay eager, as the collector
+        keeps its collectives outside its graph); `graphed=True` anywhere
+        else raises."""
+        can = device.type == "cuda" and self.mesh is None
+        if graphed and not can:
+            raise ValueError("the graphed update runs on one card without a mesh; "
+                             f"the rollout lies on {device}")
+        return can if graphed is None else graphed
 
     def _rollout_metrics(self, traj: Transition) -> Dict[str, torch.Tensor]:
         """Reward, in-tolerance, episode-end, success and failure fractions
@@ -728,7 +881,7 @@ class PPOLearner:
         # terminated & ~failed == the env's success criterion fired
         won = traj.terminated * (1.0 - traj.failed)
         sums = [traj.reward.sum(), traj.succ_step.sum(), ended.sum(), won.sum(),
-                traj.failed.sum(), traj.reward.new_tensor(float(traj.reward.numel()))]
+                traj.failed.sum(), traj.reward.new_full((), float(traj.reward.numel()))]
         per_task = bool(getattr(self.env.task, "tasks", None))
         if per_task:
             for i in range(self.task_dim):
@@ -752,11 +905,16 @@ class PPOLearner:
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One PPO iteration, the counterpart of the JAX package's
         `train_step_fn`: `collect` (on the card one graph replay of the
-        collector) with the train state's generator, then `update`. With a
-        mesh, one all-reduce then checks that the generator's state is the
-        same on every rank."""
+        collector) with the train state's generator, then `update` (on one
+        card without a mesh `epochs` replays of the epoch's graph).
+        `graphed=False` runs both halves eagerly. With a mesh, one
+        all-reduce then checks that the generator's state is the same on
+        every rank."""
         ts, traj = self.collect(ts, ts.generator, graphed)
-        ts, metrics = self.update(ts, traj)
+        # `graphed` is passed on only when given, so that a wrapper of
+        # `update(ts, traj, idx=None)` keeps working
+        ts, metrics = (self.update(ts, traj) if graphed is None
+                       else self.update(ts, traj, graphed=graphed))
         if self.mesh is not None:
             assert_replicated(ts.generator.get_state().numpy().tobytes(), self.mesh,
                               "the generator's state", self.env.device)

@@ -631,6 +631,23 @@ def _signature(x):
     return ("value", type(x), x)
 
 
+@contextlib.contextmanager
+def capturing(graph: "torch.cuda.CUDAGraph"):
+    """`torch.cuda.graph(graph)` with Python's cyclic collector held off. A
+    dead graph (an old learner's, in a reference cycle) that the cyclic
+    collector frees mid-capture invalidates the capture: such cycles are
+    freed first, and the collector stays off until the capture ends."""
+    gc.collect()
+    gc_was_on = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            yield
+    finally:
+        if gc_was_on:
+            gc.enable()
+
+
 def build_fused_policy_rollout(env: HeliEnv, num_envs: int, steps: int,
                                policy_fn: Callable, auto_reset: bool = True):
     """Fused rollout driven by a policy in the loop (the RL collection
@@ -727,23 +744,13 @@ def build_fused_policy_rollout(env: HeliEnv, num_envs: int, steps: int,
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
-        # A dead graph (an old collector's, in a reference cycle) that the
-        # cyclic collector frees mid-capture invalidates the capture: free
-        # such cycles now and keep the collector off until the capture ends.
-        gc.collect()
-        gc_was_on = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph):
-                args = [launch_args(env, g["carry"], g["init"], g["act"][t],
-                                    g["eta"][t], auto_reset, g["carry"], g["xbuf"][t])
-                        for t in range(steps)]
-                g["aux"] = loop(g["carry"], g["init"], g["eta"], g["params"],
-                                generator, g["xbuf"], g["obs"], g["act"],
-                                lambda t: _raise_on(fn(*args[t]), "fused_step"))
-        finally:
-            if gc_was_on:
-                gc.enable()
+        with capturing(graph):
+            args = [launch_args(env, g["carry"], g["init"], g["act"][t],
+                                g["eta"][t], auto_reset, g["carry"], g["xbuf"][t])
+                    for t in range(steps)]
+            g["aux"] = loop(g["carry"], g["init"], g["eta"], g["params"],
+                            generator, g["xbuf"], g["obs"], g["act"],
+                            lambda t: _raise_on(fn(*args[t]), "fused_step"))
         g["graph"] = graph
         return g
 

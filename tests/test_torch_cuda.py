@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions and against
 each other (one-step and T-step launches, every block size the kernel
-takes, the graphed collector and its eager loop), on the card.
+takes, the graphed collector and its eager loop, the graphed update and its
+eager epochs), on the card.
 
 Skips where there is no CUDA card. It imports no JAX, so it also runs on a
 machine without JAX, where the suite's conftest (which imports JAX) must be
@@ -409,6 +410,111 @@ def test_capture_survives_a_dead_collector_in_a_cycle(monkeypatch):
     _, tr_e = learner.collect(ts, g2, graphed=False)
     for f in ("obs", "action", "log_prob", "value", "reward", "terminated"):
         assert _bits_equal(getattr(tr_g, f), getattr(tr_e, f)), f
+
+
+def _train_state_bits(learner, ts):
+    """Every tensor a train step advances: parameters, Adam's moments and
+    count, the observation statistics."""
+    s = ts.obs_stats
+    return (learner.param_list(ts.params) + ts.opt_state.mu + ts.opt_state.nu
+            + [ts.opt_state.count, s.mean, s.var, s.count])
+
+
+def _assert_states_equal(learner, ts_a, m_a, ts_b, m_b):
+    assert ts_a.update_count == ts_b.update_count
+    for i, (a, b) in enumerate(zip(_train_state_bits(learner, ts_a),
+                                   _train_state_bits(learner, ts_b))):
+        assert torch.equal(a, b), i
+    assert m_a.keys() == m_b.keys()
+    for k in m_a:
+        assert torch.equal(m_a[k], m_b[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["warmup_anneal", "kl_stop_vf_clip"])
+def test_graphed_update_equals_eager(case):
+    """Three train steps with the update as one CUDA graph of an epoch,
+    replayed `epochs` times, against the eager update from the same state,
+    bit for bit: parameters, Adam's moments and count, metrics and the
+    observation statistics (unfrozen). 1024 envs x 16 steps, 2 epochs x 4
+    minibatches; the critic warm-up ends between the first and second steps
+    (the actor's scale goes from 0 to 1) while lr and the entropy
+    coefficient anneal; `kl_stop_vf_clip` adds the KL stop and value
+    clipping. The graphed run captures once, replays twice an update and
+    runs no eager minibatch step; the eager run neither captures nor
+    replays."""
+    _need_card()
+    from heligym_tpu_torch.learner import PPOConfig, PPOLearner, ppo
+    from heligym_tpu_torch.learner.evaluate import build_env
+    env, _ = build_env("hover", None, "sea_alt=start")
+    kw = dict(target_kl=2e-4, vf_clip_eps=0.2) if case == "kl_stop_vf_clip" \
+        else dict(vf_clip_eps=0.0)
+    cfg = PPOConfig(num_envs=1024, rollout_steps=16, minibatches=4, epochs=2, lr=1e-3,
+                    critic_warmup=1, anneal_updates=10, freeze_obs_stats=False,
+                    success_bonus=1.0, fail_penalty=5.0, **kw)
+    learner = PPOLearner(env, cfg)
+
+    def three(graphed):
+        ts, out = learner.init(torch.Generator().manual_seed(0)), []
+        counts = (ppo.update_captures, ppo.update_replays, ppo.eager_minibatch_steps)
+        for _ in range(3):
+            ts, m = learner.train_step(ts, graphed=graphed)
+            out.append((ts, m))
+        torch.cuda.synchronize()
+        now = (ppo.update_captures, ppo.update_replays, ppo.eager_minibatch_steps)
+        return out, tuple(b - a for a, b in zip(counts, now))
+
+    graphed, n_graphed = three(None)
+    eager, n_eager = three(False)
+    assert n_graphed == (1, 3 * cfg.epochs, 0)
+    assert n_eager == (0, 0, 3 * cfg.epochs * cfg.minibatches)
+    for (ts_g, m_g), (ts_e, m_e) in zip(graphed, eager):
+        _assert_states_equal(learner, ts_g, m_g, ts_e, m_e)
+    if case == "kl_stop_vf_clip":
+        assert any(float(m["approx_kl"]) > 0 for _, m in graphed)
+
+
+@pytest.mark.cuda
+def test_graphed_update_recaptures_after_restore(tmp_path):
+    """After `restore` into new tensors, the next graphed update captures
+    again and still equals the eager update bit for bit, and the one after
+    it replays the same graph; an injected shuffle (a list of one
+    permutation per epoch on the card, as `chip_smoke.py` passes it) gives
+    the same update graphed and eager."""
+    _need_card()
+    from heligym_tpu_torch.learner import PPOConfig, PPOLearner, ppo
+    from heligym_tpu_torch.learner.evaluate import build_env
+    env, _ = build_env("hover", None, "sea_alt=start")
+    cfg = PPOConfig(num_envs=1024, rollout_steps=16, minibatches=4, epochs=2, lr=1e-3,
+                    critic_warmup=1)
+    learner = PPOLearner(env, cfg)
+    ts, _ = learner.train_step(learner.init(torch.Generator().manual_seed(0)))
+    path = str(tmp_path / "step.npz")
+    learner.save(path, ts)
+
+    def restored():
+        return learner.restore(path, ts)
+
+    captures = ppo.update_captures
+    ts_g, m_g = learner.train_step(restored())
+    assert ppo.update_captures == captures + 1
+    ts_e, m_e = learner.train_step(restored(), graphed=False)
+    _assert_states_equal(learner, ts_g, m_g, ts_e, m_e)
+    ts_g2, m_g2 = learner.train_step(ts_g)
+    ts_e2, m_e2 = learner.train_step(ts_e, graphed=False)
+    assert ppo.update_captures == captures + 1
+    _assert_states_equal(learner, ts_g2, m_g2, ts_e2, m_e2)
+
+    n = cfg.num_envs * cfg.rollout_steps
+    perms = [torch.randperm(n, generator=torch.Generator().manual_seed(e)).cuda()
+             for e in range(cfg.epochs)]
+    ts_g, ts_e = restored(), restored()
+    ts_g, traj = learner.collect(ts_g, ts_g.generator)
+    replays = ppo.update_replays
+    ts_g, m_g = learner.update(ts_g, traj, idx=perms)
+    assert ppo.update_replays == replays + cfg.epochs
+    ts_e, m_e = learner.update(ts_e, traj, idx=perms, graphed=False)
+    _assert_states_equal(learner, ts_g, m_g, ts_e, m_e)
 
 
 @pytest.mark.cuda
