@@ -4,7 +4,8 @@ against the JAX package's eager batched step.
 On the CPU the rollout runs the kernel's plain version. The reference is
 JAX's vmapped `step_with_eta` + `auto_reset` from the same state and the same
 injected noise (the JAX fused rollout in interpret mode costs minutes on the
-CPU; JAX's own test_fused.py holds it equal to this eager path). Tolerances:
+CPU; JAX's own test_fused.py holds it equal to this eager path, a test that
+the root conftest.py marks `slow`, so it runs under `-m slow`). Tolerances:
 those of the JAX package's test_fused.py. The kernel itself is held against
 the plain version on the card by test_torch_cuda.py and chip_smoke.py."""
 import os

@@ -9,6 +9,7 @@ stop, the clip) must be the same. JAX draws the epoch's shuffle from its
 key, the port from a torch generator: the tests hand the port JAX's draw."""
 import copy
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -488,6 +489,76 @@ def test_train_step_metrics_match_jax_keys(hover_env):
     assert np.array_equal(after["Dense_0"]["kernel"], before["Dense_0"]["kernel"])
     assert not np.array_equal(after["Dense_4"]["kernel"], before["Dense_4"]["kernel"])
     assert not torch.equal(ts1.obs_stats.mean, stats0)
+
+
+# -- shaping is training-only ----------------------------------------------------
+
+# each term with the values of the JAX package's own shaping tests
+SHAPING_TERMS = {
+    "success_bonus": dict(success_bonus=2.0),
+    "fail_penalty": dict(fail_penalty=5.0),
+    "agl_shaping": dict(agl_shaping=10.0),
+    "flare_shaping": dict(flare_shaping=20.0, flare_scale=10.0),
+    "prof_shaping": dict(prof_shaping=15.0, prof_vmax=7.0, prof_scale=25.0),
+    "vel_shaping": dict(vel_shaping=0.3, vel_target_n=42.4, vel_target_e=42.4),
+    "track_shaping": dict(track_shaping=0.1, track_amplitude=150.0, track_wavelength=2000.0),
+}
+# the two event terms start where their event happens; the potentials at trim
+SHAPING_STARTS = {"success_bonus": "at_target", "fail_penalty": "edge"}
+ROLLOUT_METRICS = ("reward_mean", "succ_step_frac", "done_frac", "success_ep_frac",
+                   "fail_ep_frac")
+
+
+@pytest.fixture(scope="module")
+def train_step_from():
+    """`run(start, **terms)`: one port train step at CFG on hover from a
+    named start, with the generator seeded 6; its metrics as floats and the
+    parameters after the update. Each step is run once, so the step without
+    terms once per start."""
+    from heligym_tpu_torch.learner.train import _parse_target
+    env = HeliEnv.build("aw109", task=HoverTask(), device="cpu")
+    edge = float(env.params.ENV.NS_MAX) / 2.0
+    starts = {
+        "trim": (env, None),
+        "at_target": (env.replace(task=HoverTask(**_parse_target("sea_alt=start", env))), None),
+        "edge": (env, {"xy": [edge - 5.0, 0.0], "ned_vel": [60.0, 0.0, 0.0]}),
+    }
+
+    @functools.cache
+    def run(start, **terms):
+        e, cond = starts[start]
+        tl = PPOLearner(e, PPOConfig(**CFG, **terms))
+        ts, metrics = tl.train_step(tl.init(torch.Generator().manual_seed(6), trim_cond=cond))
+        return ({k: float(v) for k, v in metrics.items()},
+                [p.detach().clone() for p in tl.param_list(ts.params)])
+
+    return run
+
+
+@pytest.mark.parametrize("term", list(SHAPING_TERMS))
+def test_shaping_is_training_only(train_step_from, term):
+    """Each training-only term (`success_bonus`, `fail_penalty` and the five
+    potentials, at the JAX package's test values) against the same train
+    step without it: every metric finite, every rollout metric (the reported
+    env reward among them) equal at rtol 1e-5, and the parameters after the
+    update different, so the term reached the update. The potentials start
+    at the hover trim. The bonus starts at trim with the hover target at the
+    start position (the CLI's `sea_alt=start`), so every transition is in
+    tolerance. The penalty starts 5 ft inside the north edge of the map at
+    60 ft/s north, so every env flies out of bounds within the rollout: a
+    trimmed sink just above the ground does not crash, since the ground
+    cushion slows it under the crash rate (5% of tip speed) before contact."""
+    start = SHAPING_STARTS.get(term, "trim")
+    m0, p0 = train_step_from(start)
+    m, p = train_step_from(start, **SHAPING_TERMS[term])
+    assert set(m) == set(m0) and all(np.isfinite(v) for v in m.values()), m
+    for k in ROLLOUT_METRICS:
+        np.testing.assert_allclose(m[k], m0[k], rtol=1e-5, err_msg=k)
+    assert any(not torch.equal(a, b) for a, b in zip(p, p0))
+    if term == "success_bonus":
+        assert m["succ_step_frac"] > 0.0
+    if term == "fail_penalty":
+        assert m["fail_ep_frac"] > 0.0
 
 
 # -- the torch bench -----------------------------------------------------------
