@@ -100,14 +100,19 @@ class ActorCritic(nn.Module):
         return {f"Dense_{i}" for i in range(len(self.actor) + 1)} | {"log_std"}
 
     def forward(self, obs) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        a = c = obs
+        a = obs
         for lin in self.actor:
             a = torch.tanh(lin(a))
         mean = self.mean(a)
+        return mean, self.log_std.expand(mean.shape), self.critic_value(obs)
+
+    def critic_value(self, obs) -> torch.Tensor:
+        """`forward(obs)[2]` without the actor: the critic torso and the
+        value head, the same calls on the same input."""
+        c = obs
         for lin in self.critic:
             c = torch.tanh(lin(c))
-        value = self.value(c)
-        return mean, self.log_std.expand(mean.shape), value[..., 0]
+        return self.value(c)[..., 0]
 
 
 def gaussian_log_prob(mean, log_std, action):

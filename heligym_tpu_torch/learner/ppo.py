@@ -57,6 +57,11 @@ from .optim import AdamState, adam_init, apply_step
 update_captures = 0
 update_replays = 0
 eager_minibatch_steps = 0
+# The collector's value bootstrap (`_bootstrap`): transitions whose
+# pre-reset obs the critic values after the rollout, and those that take
+# the rollout's own value of the next step.
+bootstrap_valued_rows = 0
+bootstrap_reused_rows = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -465,7 +470,7 @@ class PPOLearner:
             reward = torch.clamp(torch.nan_to_num(traj["reward"], nan=-100.0,
                                                   posinf=100.0, neginf=-100.0),
                                  -100.0, 100.0)
-            v_boot = self._value_of(params, stats, traj["final_obs"], toh)
+            v_boot = self._bootstrap(params, stats, traj, toh)
         steps = traj["obs"].shape[0]
         f32 = lambda k: traj[k].to(torch.float32)
         out = Transition(obs=traj["obs"], action=traj["raw_action"],
@@ -476,9 +481,29 @@ class PPOLearner:
                          task_oh=toh.expand((steps,) + toh.shape))
         return es, out
 
+    def _bootstrap(self, params: ActorCritic, stats, traj, toh):
+        """V(final_obs) of every transition of a rollout. Where the env did
+        not end at step t < T-1, its pre-reset obs is, bit for bit, the obs
+        the policy valued at step t+1, so the rollout's own value is taken;
+        the last step and the ended transitions go through the critic in
+        one batch. Finding those rows reads their count to the host: the
+        collect's one sync after the rollout."""
+        global bootstrap_valued_rows, bootstrap_reused_rows
+        value = traj["value"]
+        fresh = traj["terminated"] | traj["truncated"]
+        fresh[-1] = True
+        t, b = torch.nonzero(fresh, as_tuple=True)
+        v_boot = torch.empty_like(value)
+        v_boot[:-1] = value[1:]
+        v_boot[t, b] = self._value_of(params, stats, traj["final_obs"][t, b], toh[b])
+        bootstrap_valued_rows += t.numel()
+        bootstrap_reused_rows += value.numel() - t.numel()
+        return v_boot
+
     def _value_of(self, params: ActorCritic, stats, obs, task_oh=None):
-        """Value head over arbitrary leading dims (one batched apply)."""
-        return params(self._net_in(obs, stats, task_oh))[2]
+        """Value head over arbitrary leading dims (one batched apply of the
+        critic alone)."""
+        return params.critic_value(self._net_in(obs, stats, task_oh))
 
     def collect(self, ts: TrainState,
                 generator: Optional[torch.Generator] = None,

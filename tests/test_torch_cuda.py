@@ -9,6 +9,9 @@ left out:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,7 @@ from heligym_tpu_torch.ops.cuda import fused_step as fs, gather
 from torch_airframes import NAME as WINGED, write_winged
 from torch_trim_cache import fresh_trim_cache  # noqa: F401
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TASK_NAMES = ("hover", "forward", "turning", "slalom", "landing",
               "landing_touch", "oblique", "mixed4", "mixed7", "hover_heavy")
 
@@ -410,6 +414,94 @@ def test_capture_survives_a_dead_collector_in_a_cycle(monkeypatch):
     _, tr_e = learner.collect(ts, g2, graphed=False)
     for f in ("obs", "action", "log_prob", "value", "reward", "terminated"):
         assert _bits_equal(getattr(tr_g, f), getattr(tr_e, f)), f
+
+
+def _benchmark_learner(name):
+    """`PPOLearner` of a benchmark configuration (`perfbench/configs/`: its
+    PPO settings, env and committed checkpoint), and `state(seed)`: a farm
+    from `seed` with the checkpoint's parameters and statistics, its
+    episode counters spread over the episode as in a farm mid-training (one
+    env in ~30 reaches the time limit inside a 64-step rollout)."""
+    from heligym_tpu_torch.learner import PPOConfig, PPOLearner
+    from heligym_tpu_torch.learner.evaluate import build_env
+    with open(os.path.join(REPO, "perfbench", "configs", name + ".json")) as f:
+        config = json.load(f)
+    tasks = config["tasks"]
+    env, _ = build_env(tasks[0], ",".join(tasks) if len(tasks) > 1 else None,
+                       config["target"], turb_level=config["turbulence_level"],
+                       heli=config["airframe"])
+    learner = PPOLearner(env, PPOConfig(**{k: (tuple(v) if isinstance(v, list) else v)
+                                           for k, v in config["ppo"].items()}))
+    ck = learner.restore(os.path.join(REPO, config["policy"]),
+                         farm_size=int(config["policy_farm"]))
+    if config.get("set_log_std") is not None:
+        with torch.no_grad():
+            ck.params.log_std.fill_(float(config["set_log_std"]))
+
+    def state(seed):
+        ids = np.arange(learner.config.num_envs) % len(tasks) if len(tasks) > 1 else None
+        ts = learner.init(torch.Generator().manual_seed(seed), task_ids=ids)
+        steps = torch.randint(0, env.time_up_steps, (learner.config.num_envs,),
+                              generator=torch.Generator().manual_seed(seed),
+                              dtype=torch.int32)
+        es = ts.env_state.replace(steps=steps.to(ts.env_state.steps.device))
+        return ts.replace(env_state=es, params=ck.params, obs_stats=ck.obs_stats,
+                          update_count=int(config.get("start_update", 0)),
+                          generator=torch.Generator(device="cuda").manual_seed(seed))
+    return learner, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["aw109-hover", "aw109-mixed4"])
+def test_bootstrap_equals_full_evaluation(name, monkeypatch):
+    """The collector's value bootstrap at the benchmark's sizes (16384 envs
+    x 64 steps, the committed checkpoints, envs ending inside the rollout),
+    3 seeds x 2 graphed collects:
+    v_boot equals bit for bit the full network on all T x B pre-reset obs in
+    one batch, where the rows it reuses come from the rollout's batches of
+    B and the rest from one batch of the last step's and the ended rows;
+    the pre-reset obs of a transition whose env did not end equals the next
+    step's obs bit for bit; no layer of the actor runs after the replay."""
+    _need_card()
+    from heligym_tpu_torch.learner import ppo
+    learner, state = _benchmark_learner(name)
+    T, B = learner.config.rollout_steps, learner.config.num_envs
+    ts = state(0)
+    learner.collect(ts, ts.generator)                # builds the collector
+    roll, seen, actor_calls = learner._fused_rollout, {}, []
+
+    def spy(*a, **kw):
+        es, traj = roll(*a, **kw)
+        seen.update(traj, actor_calls=len(actor_calls))
+        return es, traj
+
+    monkeypatch.setattr(learner, "_fused_rollout", spy)
+    net = ts.params
+    hooks = [lin.register_forward_hook(lambda *_: actor_calls.append(1))
+             for lin in [*net.actor, net.mean]]
+    try:
+        for seed in (5, 2 ** 31 + 11, 987654323):
+            ts = state(seed)
+            for _ in range(2):
+                counts = (ppo.bootstrap_valued_rows, ppo.bootstrap_reused_rows)
+                ts_next, tr = learner.collect(ts, ts.generator)
+                assert len(actor_calls) == seen["actor_calls"]
+                ended = seen["terminated"] | seen["truncated"]
+                assert ended[:-1].any()
+                valued = ppo.bootstrap_valued_rows - counts[0]
+                assert valued == B + int(ended[:-1].sum())
+                assert valued + ppo.bootstrap_reused_rows - counts[1] == T * B
+                stats = ts.obs_stats if learner.config.obs_norm else None
+                toh = learner._task_oh(ts.env_state.task_id)
+                with torch.no_grad(), ppo._fp32_matmuls():
+                    full = net(learner._net_in(seen["final_obs"], stats, toh))[2]
+                assert _bits_equal(tr.v_boot, full)
+                kept = ~ended[:-1]
+                assert _bits_equal(seen["final_obs"][:-1][kept], seen["obs"][1:][kept])
+                ts = ts_next
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 def _train_state_bits(learner, ts):

@@ -323,6 +323,59 @@ def test_collect_through_learner(learners):
     torch.testing.assert_close(tr.v_boot[:-1], v_next, atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("task", ["hover", "mixed4"])
+def test_bootstrap_reuses_values_where_no_env_ended(task, monkeypatch):
+    """The collector's bootstrap on a farm whose envs end mid-rollout (a
+    6-step episode wall reached at staggered steps, and two lanes that fail
+    on their first step): v_boot equals the full network's value of every
+    pre-reset obs; a transition whose env did not end takes the rollout's
+    own next value, and the counters split the T x B rows between the two."""
+    from heligym_tpu_torch.learner import ppo
+
+    T, B = 8, 32
+    env = HeliEnv.build("aw109", task=make_task(ttasks, task, 1600.0), device="cpu",
+                        max_time=0.1)
+    assert env.time_up_steps < T
+    tl = PPOLearner(env, PPOConfig(num_envs=B, rollout_steps=T, hidden=(32, 32)))
+    ts = tl.init(torch.Generator().manual_seed(0),
+                 task_ids=np.arange(B) % 4 if task == "mixed4" else None)
+    es = ts.env_state
+    # lanes 0 and 1 far above the ceiling (out of bounds: failed), the rest
+    # at staggered points of their episodes
+    z = es.heli.z.clone()
+    z[:2] -= 20000.0
+    ts = ts.replace(env_state=es.replace(heli=es.heli.replace(z=z),
+                                         steps=torch.arange(B, dtype=torch.int32)
+                                         % env.time_up_steps))
+    seen = {}
+    tl.collect(ts, torch.Generator().manual_seed(7))      # builds the collector
+    roll = tl._fused_rollout
+
+    def spy(*a, **kw):
+        es_out, traj = roll(*a, **kw)
+        seen.update(traj)
+        return es_out, traj
+
+    monkeypatch.setattr(tl, "_fused_rollout", spy)
+    before = (ppo.bootstrap_valued_rows, ppo.bootstrap_reused_rows)
+    _, tr = tl.collect(ts, torch.Generator().manual_seed(7))
+    valued = ppo.bootstrap_valued_rows - before[0]
+    reused = ppo.bootstrap_reused_rows - before[1]
+
+    ended = seen["terminated"] | seen["truncated"]
+    assert seen["failed"][0, :2].all() and seen["truncated"].any()
+    assert ended[:-1].any() and not ended[:-1].all()
+    assert valued + reused == T * B and valued >= B
+    assert valued == B + int(ended[:-1].sum())
+    toh = tl._task_oh(ts.env_state.task_id)
+    with torch.no_grad():
+        full = ts.params(tl._net_in(seen["final_obs"], ts.obs_stats, toh))[2]
+    torch.testing.assert_close(tr.v_boot, full, atol=1e-6, rtol=0)
+    kept = ~ended[:-1]
+    assert torch.equal(tr.v_boot[:-1][kept], tr.value[1:][kept])
+    assert torch.equal(seen["final_obs"][:-1][kept], seen["obs"][1:][kept])
+
+
 def test_graphed_rollout_refuses_cpu(learners):
     """The graphed collector is a CUDA graph: asked for on CPU tensors it
     raises, it never falls back to the eager loop."""
